@@ -1,8 +1,8 @@
-"""raytracer_tpu — a TPU-native wavefront path tracer in JAX/Pallas.
+"""raytracer_tpu — a wavefront path tracer in JAX.
 
 A from-scratch rebuild of the capabilities of ARTurleite6/RayTracer (an
-Odin + Vulkan-KHR-ray-tracing interactive progressive path tracer) designed
-TPU-first: SoA ray wavefronts, host-built BVHs flattened for stackless
+Odin + Vulkan-KHR-ray-tracing interactive progressive path tracer) built on
+SoA ray wavefronts, host-built BVHs flattened for stackless
 vectorized traversal, vmapped GGX/NEE/MIS shading, pjit/shard_map pixel-tile
 data parallelism over a device mesh, and progressive accumulation as the
 render/checkpoint state.

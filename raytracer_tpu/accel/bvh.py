@@ -1,18 +1,18 @@
 """Host-built BVH over world-space triangles, flattened for stackless
-lockstep traversal on TPU.
+lockstep traversal on the device.
 
 This plays the role of the reference's VK_KHR_acceleration_structure
 BLAS/TLAS (`src/raytracer/acceleration_structure.odin`,
-`gpu_scene.odin:209-315`), redesigned TPU-first:
+`gpu_scene.odin:209-315`), redesigned for a wavefront walk:
 
   - Instead of per-mesh BLAS + instance TLAS, all triangles are
     pre-transformed to world space at bake time and ONE BVH is built over
     them (scene sizes here — up to ~300k tris — easily fit; this removes a
-    level of indirection from the per-ray inner loop, which on TPU is pure
+    level of indirection from the per-ray inner loop, which is pure
     gather cost).
   - The driver's fixed-function BVH build is replaced by a host binned-SAH
-    builder (numpy, with an optional native C++ fast path — see
-    native/bvh_builder.cpp); "UPDATE mode" refit
+    builder (native C++, native/bvh_builder.cpp, built at first use;
+    numpy reference builder alongside); "UPDATE mode" refit
     (acceleration_structure.odin:125-131) becomes `refit()`, which recomputes
     node AABBs bottom-up without changing topology.
   - Hardware traversal is replaced by a vectorized stackless skip-link walk
@@ -60,9 +60,8 @@ class BVH:
 
     def max_depth(self) -> int:
         """Deepest node's depth (root = 0). Binned SAH can emit highly skewed
-        trees on adversarial (clustered / exponentially spaced) input, so the
-        Pallas packet kernel's fixed traversal stack must be validated against
-        this at bake time, not assumed."""
+        trees on adversarial (clustered / exponentially spaced) input; a
+        fixed-size traversal stack must be checked against this."""
         p = self.parent.astype(np.int64)
         depth = np.zeros(len(p), np.int64)
         anc = p.copy()
@@ -186,16 +185,15 @@ def build_bvh(v0: np.ndarray, e1: np.ndarray, e2: np.ndarray,
               leaf_size: int = 8) -> BVH:
     """Binned-SAH BVH over triangles given as (v0, edge1, edge2).
 
-    Prefers the native C++ builder (native/bvh_builder.cpp) when its shared
-    library has been built; falls back to the numpy implementation below.
+    Uses the native C++ builder (native/bvh_builder.cpp), compiled on
+    first use (accel/native_builder.py); `build_bvh_numpy` is the reference
+    implementation the tests compare it with.
     Triangles are reordered so each leaf owns a contiguous [first, count)
     range; apply `tri_order` to all per-triangle arrays after building.
     """
     from raytracer_tpu.accel import native_builder
 
-    if native_builder.available():
-        return native_builder.build_bvh_native(v0, e1, e2, leaf_size)
-    return build_bvh_numpy(v0, e1, e2, leaf_size)
+    return native_builder.build_bvh_native(v0, e1, e2, leaf_size)
 
 
 _SPLIT_REL_AREA = 64.0   # split refs whose AABB area > this x median
@@ -329,88 +327,6 @@ def build_bvh_split(v0: np.ndarray, e1: np.ndarray, e2: np.ndarray,
     bvh.tri_order = ref_tri[bvh.tri_order]
     bvh.input_tris = len(v0)
     return bvh
-
-
-def collapse_bvh4(bvh: BVH):
-    """Collapse the binary tree into 4-wide nodes for the sub-packet kernel:
-    each quad node's children are its binary grandchildren (or the child
-    itself where that child is a leaf), so ONE dynamic row read serves 4
-    slab tests and internal pop/push/extract rounds halve — the measured
-    cost of a traversal iteration is ~394 cyc of serial latency against
-    ~70 cyc of slab VPU (ARCHITECTURE.md), so fewer, fatter iterations win.
-
-    Leaf blocks are untouched (leaf ids match the binary packing, so ptris
-    is shared and leaf-visit tie-breaking is unchanged).
-
-    Returns (qnodes f32[N4,32], qmeta i32[4*N4], qroot i32[1],
-    stack_need int). qnodes row: 4x(min.xyz, max.xyz), then the 4 child
-    metas as exact-int f32 (quad id >= 0, ~leaf_block < 0). ABSENT children
-    get NaN boxes — every slab comparison is false, a guaranteed miss (an
-    inverted box does NOT work: the slab's per-axis min/max normalizes it
-    into an infinite interval that hits everything). stack_need is the
-    per-row SMEM stack bound: a 4-ary DFS holds <= 3 entries per level.
-
-    Reference analog: the driver's PREFER_FAST_TRACE BVH build quality knob
-    (acceleration_structure.odin:65-143) — wide nodes are the host
-    builder's concern here."""
-    is_leaf = bvh.nodes_count > 0
-    skip = bvh.nodes_skip
-    if is_leaf[0]:
-        # Single-leaf scene: the root meta routes straight into the leaf
-        # queue (same convention as the binary packing's meta_of(0)); the
-        # node arrays are never read.
-        qnodes = np.full((1, 32), np.nan, np.float32)
-        qnodes[:, 28:32] = 0.0
-        qmeta = np.zeros((4,), np.int32)
-        return qnodes, qmeta, np.asarray([~0], np.int32), 4
-
-    leaf_ids = (np.cumsum(is_leaf) - 1).astype(np.int64)
-    quad_of = {}
-    order = []
-    children_of = {}
-    depth4 = {0: 0}
-    max_d4 = 0
-    stack = [0]
-    while stack:
-        x = stack.pop()
-        quad_of[x] = len(order)
-        order.append(x)
-        left = x + 1
-        right = int(skip[left])
-        kids = []
-        for c in (left, right):
-            if is_leaf[c]:
-                kids.append(("leaf", int(leaf_ids[c]), c))
-            else:
-                cl = c + 1
-                cr = int(skip[cl])
-                for g in (cl, cr):
-                    if is_leaf[g]:
-                        kids.append(("leaf", int(leaf_ids[g]), g))
-                    else:
-                        kids.append(("quad", None, g))
-        children_of[x] = kids
-        for kind, _, node in reversed(kids):
-            if kind == "quad":
-                depth4[node] = depth4[x] + 1
-                max_d4 = max(max_d4, depth4[node])
-                stack.append(node)
-
-    n4 = len(order)
-    assert n4 < (1 << 24)
-    qnodes = np.full((n4, 32), np.nan, np.float32)
-    qnodes[:, 28:32] = 0.0
-    qmeta = np.zeros((4 * n4,), np.int32)
-    for x in order:
-        qid = quad_of[x]
-        row = qnodes[qid]
-        for c, (kind, lid, node) in enumerate(children_of[x]):
-            row[6 * c + 0: 6 * c + 3] = bvh.nodes_min[node]
-            row[6 * c + 3: 6 * c + 6] = bvh.nodes_max[node]
-            meta = ~lid if kind == "leaf" else quad_of[node]
-            row[24 + c] = np.float32(meta)
-            qmeta[4 * qid + c] = meta
-    return qnodes, qmeta, np.asarray([0], np.int32), 3 * (max_d4 + 1) + 1
 
 
 def build_bvh_numpy(v0: np.ndarray, e1: np.ndarray, e2: np.ndarray,

@@ -11,7 +11,7 @@ ProgressiveRenderer is the analog of Raytracing_Renderer
     reached (:204-205,347-350)
   - checkpoint/resume: the accumulation buffer + frame counter IS the render
     state; save/load make long renders resumable (the reference has no
-    checkpointing — SURVEY.md §5 — this is the TPU-build upgrade).
+    checkpointing — SURVEY.md §5).
 """
 
 from __future__ import annotations
@@ -32,12 +32,6 @@ from raytracer_tpu.scene.device_scene import (
 )
 from raytracer_tpu.scene.model import Scene, SceneChangeType
 from raytracer_tpu.utils.config import RenderConfig
-
-# Scene-array VMEM budget for the packet kernel (v5e has 128 MB VMEM; the
-# rest is ray buffers + headroom). Larger scenes are baked as multiple
-# VMEM-sized subtree parts traced in sequential per-part passes
-# (scene/device_scene.py:_pack_pallas_parts).
-PALLAS_VMEM_BUDGET = 90 * 1024 * 1024
 
 
 @functools.partial(jax.jit, static_argnames=("cfg",), donate_argnums=(2,))
@@ -88,18 +82,6 @@ class ProgressiveRenderer:
         self.scene = scene
         self.mesh = mesh
         self.config = (config or RenderConfig()).resolve_accel()
-        if (self.config.accel == "pallas"
-                and abs(self.config.t_min - 1e-3) > 1e-9):
-            # The sub-packet kernels hard-code the reference's traceRayEXT
-            # t_min of 1e-3 (asserted at trace time); a custom t_min must
-            # fall back to the XLA walk instead of crashing mid-render.
-            import logging
-
-            logging.getLogger(__name__).warning(
-                "t_min=%g unsupported by accel='pallas' (kernel assumes "
-                "1e-3); falling back to accel='bvh'", self.config.t_min
-            )
-            self.config = self.config.replace(accel="bvh")
         self.camera = camera or Camera.create(
             position=(0.0, 0.0, -3.0),
             aspect=self.config.width / self.config.height,
@@ -107,34 +89,6 @@ class ProgressiveRenderer:
         self.device_scene, self._host_bvh = bake_scene(
             scene, **self._bake_kwargs()
         )
-        if self.config.accel == "pallas":
-            from raytracer_tpu.ops.pallas_subpacket import stack_need_fits
-
-            reason = None
-            if self.device_scene.pallas_vmem_bytes > PALLAS_VMEM_BUDGET:
-                # Oversized scenes are cut into VMEM-sized subtree parts at
-                # bake time (device_scene.py:_pack_pallas_parts); this
-                # fallback only remains for the pathological case of a
-                # single part exceeding the budget.
-                reason = (
-                    f"scene too large for the VMEM-resident packet kernel "
-                    f"({self.device_scene.pallas_vmem_bytes >> 20} MB)"
-                )
-            elif not stack_need_fits(self.device_scene):
-                # Binned SAH can emit highly skewed trees on adversarial
-                # input; a tree deeper than the kernel's SMEM stack would
-                # silently corrupt traversal.
-                reason = (
-                    f"quad-BVH stack need {self.device_scene.q_stack_need} "
-                    "exceeds the sub-packet kernel's traversal stack"
-                )
-            if reason is not None:
-                import logging
-
-                logging.getLogger(__name__).warning(
-                    "%s; falling back to accel='bvh'", reason
-                )
-                self.config = self.config.replace(accel="bvh")
         # The bake consumed the scene's current state: construction-time
         # journal entries are already reflected and must not trigger a
         # replay/reset on the first begin_frame.
@@ -217,20 +171,12 @@ class ProgressiveRenderer:
 
         return shard_adaptive(state, self.mesh)
 
-    def _pallas_budget(self):
-        """Packed-array VMEM budget for the bake: only the pallas accel needs
-        VMEM-sized (possibly multi-part) traversal arrays."""
-        return (PALLAS_VMEM_BUDGET if self.config.accel == "pallas"
-                else None)
-
     def _bake_kwargs(self):
         """One bake parameterization for init / journal replay / material
         fallback, so every re-bake of this renderer produces the same array
         shapes (stable_bake keeps topology edits inside one jit signature)."""
         return dict(
             leaf_size=self.config.bvh_leaf_size,
-            pallas_budget_bytes=self._pallas_budget(),
-            pack_pallas=self.config.accel == "pallas",
             stable_shapes=self.config.stable_bake,
         )
 
@@ -246,8 +192,7 @@ class ProgressiveRenderer:
         runs, the in-flight device frame / the editor's previous preview
         keeps displaying, and the next begin_frame() swaps the prebaked
         scene in instead of baking synchronously (the reference rebuilds
-        its AS synchronously on add/remove, gpu_scene.odin:430-455 — this
-        is the TPU build's overlap upgrade).
+        its AS synchronously on add/remove, gpu_scene.odin:430-455).
 
         Safe under further edits: the prebake is keyed on the journal
         length at launch; any edit that lands after it invalidates the
@@ -551,8 +496,7 @@ class ProgressiveRenderer:
         readback is ~25 MB per frame through the device link, which
         dominates the preview cadence — an editor that scales the small
         image up for display itself (every UI toolkit does) gets a
-        scale^2-times smaller transfer (measured in BENCH_LOCAL.json
-        interactive_1080p rows).
+        scale^2-times smaller transfer.
 
         Pending scene edits and camera changes are applied first (the same
         begin_frame journal replay a step() would run — so the preview
@@ -562,7 +506,7 @@ class ProgressiveRenderer:
         counter, and ReSTIR/adaptive state are untouched (the reference
         shows its raw accumulating viewport, ui.odin:491-571; here a 1080p
         preview at scale 4 traces 1/16 of the rays, which is what makes a
-        denoised 1080p edit loop interactive on one chip). The sample uses
+        denoised 1080p edit loop interactive on one device). The sample uses
         the CURRENT frame index's RNG streams: repeated calls between
         steps are deterministic, successive frames decorrelate."""
         self.begin_frame()

@@ -37,7 +37,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-depth", type=int, default=3)
     p.add_argument("--background", type=float, nargs=3,
                    default=(0.53, 0.81, 0.92))
-    p.add_argument("--accel", choices=("auto", "pallas", "bvh", "brute"),
+    p.add_argument("--accel", choices=("auto", "bvh", "brute"),
                    default="auto")
     p.add_argument("--no-transmission", action="store_true")
     p.add_argument("--light-sampling-only", action="store_true",
@@ -49,9 +49,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="adaptive sampling: a pixel stops once the relative "
                         "standard error of its mean luminance drops under "
                         "TOL (0 = off). Retired pixels save their traversal "
-                        "cost, not the frame's fixed floor — pays on long "
-                        "converging renders of traversal-heavy scenes "
-                        "(2.23x measured at tol 0.15; ADAPTIVE_LAB.json)")
+                        "cost, not the frame's fixed floor — meant for long "
+                        "converging renders of traversal-heavy scenes")
     p.add_argument("--denoise", action="store_true",
                    help="edge-aware a-trous denoise of the output (and "
                         "previews); accumulation itself is untouched")
@@ -75,11 +74,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "loop at K=4 traces 1/16 of the rays per preview")
     p.add_argument("--spp-batch", type=int, default=1, metavar="S",
                    help="render S progressive samples per launch (one "
-                        "wavefront of S x pixels lanes). The measured "
-                        "small-tile mitigation for multi-chip meshes "
-                        "(TILESIZE_LAB.json): restores the wavefront width "
-                        "a small per-chip tile loses; latency per step "
-                        "rises ~S-fold. --spp must divide by S")
+                        "wavefront of S x pixels lanes). Restores the "
+                        "wavefront width a small per-device tile loses on "
+                        "a mesh; latency per step rises ~S-fold. --spp "
+                        "must divide by S")
     p.add_argument("--stats-every", type=int, default=0, metavar="N",
                    help="print the stats table every N frames (the ImGui "
                         "Performance-window analog)")

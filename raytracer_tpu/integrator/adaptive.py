@@ -6,9 +6,8 @@ accumulation limit (raytracing_renderer.odin:204-205,347-350) — easy
 pixels (sky, flat walls) get exactly as many samples as the hardest
 penumbra. Here each pixel tracks a Welford variance estimate of its
 luminance and stops sampling once the relative half-width of its mean
-estimate falls under `RenderConfig.adaptive_tol`; the freed lanes sort to
-the back of the wavefront (dead-last sort key), so their kernel groups
-terminate in one pop and frame time falls with the unconverged fraction.
+estimate falls under `RenderConfig.adaptive_tol`; the freed lanes enter
+the traversal already finished, so they cost no BVH steps.
 
 Exactness: each pixel's sample stream is indexed by its OWN count (seeds
 = tea(pixel, count), frame-0 centered jitter per pixel), so a pixel's

@@ -2,7 +2,7 @@
 
 BEYOND-REFERENCE component: the reference renders its editor viewport raw
 and relies on progressive accumulation for convergence (ui.odin displays
-the accumulating image as-is). On TPU the same progressive loop runs at
+the accumulating image as-is). Here the same progressive loop runs at
 preview resolutions (examples/interactive_session.py), and a denoised
 preview makes 1-4 spp frames visually usable during edits. The filter is
 applied ONLY at image()-time — the accumulation buffer itself is never

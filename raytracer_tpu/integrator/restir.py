@@ -6,7 +6,7 @@ The reference *sketches* this: an RTXDI-style reservoir struct
 emission), and a non-compiling rgen stub (restir/restir_di.rgen) that nothing
 dispatches. We implement the real algorithm
 (Bitterli et al. 2020, "Spatiotemporal reservoir resampling for real-time ray
-tracing with dynamic direct lighting") TPU-first on those data layouts:
+tracing with dynamic direct lighting") on those data layouts:
 
   reservoir SoA over pixels: weight_sum (w_sum), target_pdf (p̂ of the kept
   sample), M (candidates seen), light_index, uv (triangle barycentrics),
@@ -36,17 +36,15 @@ Per frame (all lockstep over the pixel wavefront, fused under one jit):
      With cfg.restir_final_visibility_feedback the step-6
      occlusion result also invalidates the reservoir handed to the next
      frame, so spatially imported samples that are occluded HERE cannot
-     persist through temporal reuse shading black for ~M frames
-     (RESTIR_BIAS_DIAG.json quantifies both bias terms on the atrium).
+     persist through temporal reuse shading black for ~M frames.
 
-Both reuse "fixes" (steps 5/6 options) default OFF from measurement:
-RESTIR_FLOOR_LAB.json (atrium) + RESTIR_DEFAULT_LAB.json (64-light grid)
-show each one raising long-run error on at least one scene and BOTH
-together the worst variant on both scenes, while early frames — the
-real-time regime ReSTIR is for — are identical across variants. The +6%
+Both reuse "fixes" (steps 5/6 options) default OFF: on the atrium and the
+64-light grid each one raised long-run error on at least one scene and
+BOTH together were the worst variant on both scenes, while early frames —
+the real-time regime ReSTIR is for — are identical across variants. The
 energy divergence that motivated them is radiance-clamp interplay (plain's
 spikier MIS estimator loses more to the 5.0 clamp), not reuse bias:
-unclamped, the RIS/plain energy ratio flips from 1.060 to 0.956.
+without the clamp the ReSTIR/plain energy ratio falls below 1.
 
 RNG: ReSTIR draws come from a dedicated third stream seeded with
 tea(pixel, frame ^ 0x9E3779B9) so the base integrator's stream parity with
@@ -592,41 +590,8 @@ def render_wavefront_restir(scene, camera_ubo, prev_reservoir, frame_number,
     pixel_idx = (
         jnp.asarray(pixel_start, jnp.uint32) + jnp.arange(n, dtype=jnp.uint32)
     )
-    frame_u32 = jnp.asarray(frame_number, jnp.uint32)
-    seed0 = rng.seed_pixels(pixel_idx, frame_u32)
-
-    jitter_on = frame_u32 > 0
-    jitter_mask = jnp.broadcast_to(jitter_on, (n,))
-    r1, seed_rgen = rng.rnd_masked(seed0, jitter_mask)
-    r2, seed_rgen = rng.rnd_masked(seed_rgen, jitter_mask)
-    jitter = jnp.where(
-        jitter_on,
-        0.5 + (jnp.stack([r1, r2], axis=-1) - 0.5) * 0.4,
-        jnp.full((n, 2), 0.5, jnp.float32),
-    )
-    origin, direction = wf._camera_rays(
-        camera_ubo["inverse_view"], camera_ubo["inverse_proj"],
-        cfg.width, cfg.height, jitter, pixel_idx,
-    )
-
-    state = wf.WavefrontState(
-        origin=origin,
-        direction=direction,
-        color=jnp.zeros((n, 3), jnp.float32),
-        throughput=jnp.ones((n, 3), jnp.float32),
-        seed_rgen=seed_rgen,
-        seed=seed_rgen,
-        alive=jnp.ones((n,), bool),
-        first_bounce=jnp.ones((n,), bool),
-        is_specular=jnp.zeros((n,), bool),
-        prev_brdf_pdf=jnp.ones((n,), jnp.float32),
-        prev_hit_pos=jnp.zeros((n, 3), jnp.float32),
-        p_sample_light=jnp.zeros((n,), jnp.float32),
-        did_direct=jnp.zeros((n,), bool),
-        channel=jnp.full((n,), -1, jnp.int32),
-        pixel=jnp.arange(n, dtype=jnp.int32),
-    )
-    clear_color = jnp.asarray(cfg.background, jnp.float32)
+    state = wf.primary_state(camera_ubo, frame_number, cfg, pixel_idx)
+    origin, direction = state.origin, state.direction
 
     # --- primary trace + G-buffer (restir.rgen) ---
     hit = wf._trace(scene, origin, direction, cfg, state.alive)
@@ -673,71 +638,19 @@ def render_wavefront_restir(scene, camera_ubo, prev_reservoir, frame_number,
         is_specular=jnp.where(restir_lane, False, state.is_specular)
     )
 
-    missed = state.alive & ~payload_hit
-    state = state._replace(
-        color=jnp.where(
-            missed[:, None],
-            state.color + state.throughput * clear_color,
-            state.color,
-        ),
-        alive=state.alive & payload_hit,
-    )
-    tp = state.throughput
-    bad = (
-        jnp.any(jnp.isnan(tp) | jnp.isinf(tp), axis=-1)
-        | jnp.all(tp < 0.001, axis=-1)
-    )
-    state = state._replace(alive=state.alive & ~bad)
+    state = wf.end_of_bounce(state, payload_hit, cfg)
 
     # --- indirect bounces (standard path tracing with NEE) ---
     def bounce(depth, carry):
         state, rays, shadows = carry
-        rays = rays + jnp.sum(state.alive.astype(jnp.int32))
-        if cfg.accel == "pallas":
-            state = wf._sort_wavefront(state, scene)
-        rr_lane = state.alive & (depth >= cfg.rr_start_depth)
-        from raytracer_tpu.ops.math3d import luminance_rec709
-
-        lum = luminance_rec709(state.throughput)
-        p = jnp.minimum(jnp.maximum(lum, 0.05), 0.95)
-        r, seed_rgen2 = rng.rnd_masked(state.seed_rgen, rr_lane)
-        rr_kill = rr_lane & (r > p)
-        throughput = jnp.where(
-            (rr_lane & ~rr_kill)[:, None], state.throughput / p[:, None],
-            state.throughput,
-        )
-        state = state._replace(
-            seed_rgen=seed_rgen2, throughput=throughput,
-            alive=state.alive & ~rr_kill,
-        )
-        hit = wf._trace(scene, state.origin, state.direction, cfg,
-                        state.alive)
-        state, payload_hit, sh = wf._shade(scene, state, hit, cfg)
-        missed = state.alive & ~payload_hit
-        state = state._replace(
-            color=jnp.where(
-                missed[:, None],
-                state.color + state.throughput * clear_color,
-                state.color,
-            ),
-            alive=state.alive & payload_hit,
-        )
-        tp = state.throughput
-        bad = (
-            jnp.any(jnp.isnan(tp) | jnp.isinf(tp), axis=-1)
-            | jnp.all(tp < 0.001, axis=-1)
-        )
-        return state._replace(alive=state.alive & ~bad), rays, shadows + sh
+        state, r, sh = wf.trace_bounce(scene, state, depth, cfg)
+        return state, rays + r, shadows + sh
 
     state, indirect_rays, indirect_shadows = jax.lax.fori_loop(
         1, cfg.max_depth, bounce, (state, jnp.int32(0), jnp.int32(0))
     )
 
-    final = jnp.minimum(state.color, cfg.radiance_clamp)
-    invalid = jnp.any(jnp.isnan(final) | jnp.isinf(final), axis=-1)
-    radiance = jnp.where(invalid[:, None], 0.0, final)
-    if cfg.accel == "pallas":
-        radiance = jnp.zeros_like(radiance).at[state.pixel].set(radiance)
+    radiance = wf.finish_radiance(state, cfg)
     if with_stats:
         total = (jnp.int32(n) + restir_shadow_rays + indirect_rays
                  + indirect_shadows)

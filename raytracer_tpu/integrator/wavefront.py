@@ -1,6 +1,6 @@
 """The wavefront path-tracing integrator — rgen/rchit/rmiss as one jitted fn.
 
-TPU-first restructuring of the reference's RT pipeline:
+Wavefront restructuring of the reference's RT pipeline:
 
   simple.rgen (per-pixel recursion driver)  ->  SoA wavefront [N = W*H] with
                                                 an alive mask, bounce loop as
@@ -82,144 +82,6 @@ class WavefrontState(NamedTuple):
     # Spectral channel lock for dispersion (-1 = broadband): after the first
     # dispersive refraction a path follows one RGB channel's IOR.
     channel: jnp.ndarray  # i32[N]
-    # The (tile-local) pixel each lane serves. Ray sorting permutes lanes
-    # between bounces (coherence for the packet kernel); the final radiance
-    # is scattered back through this index.
-    pixel: jnp.ndarray  # i32[N]
-
-
-def _morton9(q):
-    """Spread 9-bit ints so bits land 3 apart (for 3-axis interleave)."""
-    q = q & 0x1FF
-    q = (q | (q << 16)) & 0x030000FF
-    q = (q | (q << 8)) & 0x0300F00F
-    q = (q | (q << 4)) & 0x030C30C3
-    q = (q | (q << 2)) & 0x09249249
-    return q
-
-
-def _part_affinity(scene, origin, direction, num_bits):
-    """Which VMEM subtree part a ray ENTERS first (slab t_near vs the baked
-    part root AABBs, misses last). Used as a sort-key prefix so 256-ray
-    kernel groups become part-pure: in a foreign part's sequential pass the
-    whole group then dies at the root slab test instead of dragging its
-    union through deep traversal (the measured ~1.9x/ray multipart tax)."""
-    aabb = scene.part_aabb  # [P,6]
-    inv = 1.0 / jnp.where(jnp.abs(direction) < 1e-12,
-                          jnp.where(direction >= 0, 1e-12, -1e-12), direction)
-    t0 = (aabb[None, :, 0:3] - origin[:, None, :]) * inv[:, None, :]
-    t1 = (aabb[None, :, 3:6] - origin[:, None, :]) * inv[:, None, :]
-    tn = jnp.max(jnp.maximum(jnp.minimum(t0, t1), 0.0), axis=2)
-    tf = jnp.min(jnp.maximum(t0, t1), axis=2)
-    tn = jnp.where(tn <= tf, tn, jnp.inf)  # [N,P]
-    best = jnp.clip(jnp.argmin(tn, axis=1).astype(jnp.uint32), 0,
-                    (1 << num_bits) - 1)
-    # Rays that miss EVERY part get the top bucket (argmin of an all-inf
-    # row is 0, which would dilute part-0 groups with lanes that die at
-    # every root slab); when parts overflow the bit budget the top bucket
-    # is shared by the last parts and misses — still sorted, just coarser.
-    miss_all = jnp.isinf(jnp.min(tn, axis=1))
-    return jnp.where(miss_all, jnp.uint32((1 << num_bits) - 1), best)
-
-
-def _sort_wavefront(state: WavefrontState, scene) -> WavefrontState:
-    """Sort lanes by (dead-last, direction octant, 27-bit position Morton).
-
-    Bounce wavefronts are incoherent; the Pallas packet kernel's per-tile
-    cost is the UNION of its rays' BVH visits, so spatial/directional
-    sorting is the difference between ~0.2 s and ~20 s per 1080p frame
-    (measured). Dead lanes sort to the end and their packets terminate in
-    one pop. Per-lane values travel with the lane, so images are unchanged.
-
-    XLA gathers are ROW-throughput-bound (~25 ns/row regardless of width),
-    so the 15 per-field gathers of the naive tree_map permutation are packed
-    into two wide ones (f32 fields / integer fields) — measured 435 -> ~170
-    ms at 2M lanes. Key variants measured in tools/sort_lab.py: this
-    direction-major key beats position-major, finer direction bits, and
-    morton-only on bounce-wavefront visit counts.
-    """
-    extent = jnp.maximum(scene.scene_max - scene.scene_min, 1e-6)
-    q = jnp.clip(
-        (state.origin - scene.scene_min) / extent * 511.0, 0.0, 511.0
-    ).astype(jnp.uint32)
-    morton = (
-        _morton9(q[:, 0]) | (_morton9(q[:, 1]) << 1)
-        | (_morton9(q[:, 2]) << 2)
-    )
-    octant = (
-        (state.direction[:, 0] >= 0).astype(jnp.uint32)
-        | ((state.direction[:, 1] >= 0).astype(jnp.uint32) << 1)
-        | ((state.direction[:, 2] >= 0).astype(jnp.uint32) << 2)
-    )
-    dead = (~state.alive).astype(jnp.uint32)
-    p = getattr(scene, "num_parts", 1)
-    if p > 1 and getattr(scene, "part_aabb", None) is not None:
-        # Part-affinity prefix (below dead, above octant): part-pure kernel
-        # groups make foreign-part passes die at the root (sorting is a pure
-        # lane permutation — results are scattered back by pixel id, so this
-        # cannot change the image). Bit 30 is free; beyond 2 parts the
-        # morton tail is shortened to make room. p.bit_length() (not p-1)
-        # reserves one extra bucket for rays that miss every part.
-        pb = max(1, min(3, p.bit_length()))
-        aff = _part_affinity(scene, state.origin, state.direction, pb)
-        shift = pb - 1
-        key = ((dead << 31) | (aff << (31 - pb))
-               | (octant << (27 - shift)) | (morton >> shift))
-    else:
-        key = (dead << 31) | (octant << 27) | morton
-    perm = jnp.argsort(key)
-
-    # 16 f32 columns exactly: the gather fast path ends at width 16
-    # (tools/gather_lab.py; [N,17] vs [N,16]+[N,6] measured 1.14x in situ,
-    # tools/r3_sort16_lab.py), so the 17th f32 field rides in the integer
-    # gather as a bitcast.
-    packed_f = jnp.concatenate(
-        [
-            state.origin,
-            state.direction,
-            state.color,
-            state.throughput,
-            state.prev_hit_pos,
-            state.prev_brdf_pdf[:, None],
-        ],
-        axis=1,
-    )[perm]
-    flags = (
-        state.alive.astype(jnp.uint32)
-        | (state.first_bounce.astype(jnp.uint32) << 1)
-        | (state.is_specular.astype(jnp.uint32) << 2)
-        | (state.did_direct.astype(jnp.uint32) << 3)
-    )
-    packed_i = jnp.stack(
-        [
-            state.seed_rgen,
-            state.seed,
-            flags,
-            state.channel.astype(jnp.uint32),
-            state.pixel.astype(jnp.uint32),
-            jax.lax.bitcast_convert_type(state.p_sample_light, jnp.uint32),
-        ],
-        axis=1,
-    )[perm]
-    return WavefrontState(
-        origin=packed_f[:, 0:3],
-        direction=packed_f[:, 3:6],
-        color=packed_f[:, 6:9],
-        throughput=packed_f[:, 9:12],
-        prev_hit_pos=packed_f[:, 12:15],
-        prev_brdf_pdf=packed_f[:, 15],
-        p_sample_light=jax.lax.bitcast_convert_type(
-            packed_i[:, 5], jnp.float32
-        ),
-        seed_rgen=packed_i[:, 0],
-        seed=packed_i[:, 1],
-        alive=(packed_i[:, 2] & 1) != 0,
-        first_bounce=(packed_i[:, 2] & 2) != 0,
-        is_specular=(packed_i[:, 2] & 4) != 0,
-        did_direct=(packed_i[:, 2] & 8) != 0,
-        channel=packed_i[:, 3].astype(jnp.int32),
-        pixel=packed_i[:, 4].astype(jnp.int32),
-    )
 
 
 def _camera_rays(inverse_view, inverse_proj, width, height, jitter,
@@ -244,7 +106,10 @@ def _camera_rays(inverse_view, inverse_proj, width, height, jitter,
         + inverse_proj[:3, 3]
     )
     t = normalize(target_h)
-    direction = t @ inverse_view[:3, :3].T
+    # HIGHEST keeps the product in true f32 on backends whose default
+    # matmul precision is lower (TF32 on tensor cores).
+    direction = jnp.matmul(t, inverse_view[:3, :3].T,
+                           precision=jax.lax.Precision.HIGHEST)
     return origin, normalize(direction)
 
 
@@ -256,13 +121,6 @@ def _trace(scene, origin, direction, cfg: RenderConfig, active):
         )
         return rec._replace(
             hit=rec.hit & active, tri=jnp.where(active, rec.tri, -1)
-        )
-    if cfg.accel == "pallas":
-        from raytracer_tpu.ops.pallas_subpacket import intersect_bvh_subpacket
-
-        return intersect_bvh_subpacket(
-            origin, direction, scene, cfg.t_min, cfg.t_max,
-            active_mask=active,
         )
     return intersect_bvh(
         origin, direction, scene, cfg.t_min, cfg.t_max,
@@ -278,71 +136,10 @@ def _occluded(scene, origin, direction, t_max, skip_object, cfg, active):
             skip_object,
         )
         return occ & active
-    if cfg.accel == "pallas":
-        return _occluded_pallas_sorted(
-            scene, origin, direction, t_max, skip_object, cfg, active
-        )
     return occlusion_bvh(
         origin, direction, cfg.t_min, t_max, scene, skip_object,
         leaf_size=cfg.bvh_leaf_size, active_mask=active,
     )
-
-
-def _occluded_pallas_sorted(scene, origin, direction, t_max, skip_object,
-                            cfg, active):
-    """Position-sorted occlusion for the packet kernel.
-
-    Shadow rays inherit the caller's wavefront order — direction-octant-major
-    for bounce wavefronts — which scrambles shadow-ray ORIGINS across
-    packets, and packet traversal costs the union of its rays' BVH visits.
-    Re-sorting by origin Morton (dead lanes last) collapses the unions:
-    measured 3047 -> 323 ms at bounce 0 and 1568 -> 321 ms at bounce 1 on
-    the 300k-tri bench workload (tools/occl_lab.py), for ~115 ms of
-    permutation overhead. The permutation moves through ONE packed [N,8]
-    row gather (gathers are row-throughput-bound, width is free) and the
-    result scatters back through the inverse."""
-    from raytracer_tpu.ops.pallas_subpacket import occlusion_bvh_subpacket
-
-    n = origin.shape[0]
-    extent = jnp.maximum(scene.scene_max - scene.scene_min, 1e-6)
-    q = jnp.clip(
-        (origin - scene.scene_min) / extent * 511.0, 0.0, 511.0
-    ).astype(jnp.uint32)
-    morton = (
-        _morton9(q[:, 0]) | (_morton9(q[:, 1]) << 1) | (_morton9(q[:, 2]) << 2)
-    )
-    dead = (~active).astype(jnp.uint32)
-    p = getattr(scene, "num_parts", 1)
-    if p > 1 and getattr(scene, "part_aabb", None) is not None:
-        # Bits 27-30 are free in this key (no octant): the part-affinity
-        # prefix needs no morton shortening here, and there is room for the
-        # all-miss bucket up to 15 parts.
-        pb = max(1, min(4, p.bit_length()))
-        aff = _part_affinity(scene, origin, direction, pb)
-        key = (dead << 31) | (aff << 27) | morton
-    else:
-        key = (dead << 31) | morton
-    perm = jnp.argsort(key)
-
-    t_max_b = jnp.broadcast_to(jnp.asarray(t_max, jnp.float32), (n,))
-    # Fold `active` into t_max (inactive lanes' slab tests all fail) so the
-    # mask needn't be permuted separately.
-    t_eff = jnp.where(active, t_max_b, cfg.t_min)
-    packed = jnp.concatenate(
-        [
-            origin,
-            direction,
-            t_eff[:, None],
-            # Object ids are small ints — exact in f32.
-            skip_object.astype(jnp.float32)[:, None],
-        ],
-        axis=1,
-    )[perm]
-    occ_s = occlusion_bvh_subpacket(
-        packed[:, 0:3], packed[:, 3:6], cfg.t_min, packed[:, 6],
-        scene, packed[:, 7].astype(jnp.int32),
-    )
-    return jnp.zeros((n,), bool).at[perm].set(occ_s) & active
 
 
 def _light_weights(scene, hit_pos, skip_object, cfg: RenderConfig,
@@ -464,9 +261,9 @@ class SurfaceHit(NamedTuple):
 def fetch_surface(scene, hit, ray_dir, lane) -> SurfaceHit:
     """Barycentric interpolation of the hit triangle + material lookup.
 
-    TWO gathers total: XLA gathers are row-throughput-bound (~40-80M rows/s
-    on v5e), so triangle shading data and materials are packed into single
-    rows at bake (tri_shade f32[T,24], mat_packed f32[M,16])."""
+    TWO gathers total: XLA gathers are row-throughput-bound, so triangle
+    shading data and materials are packed into single rows at bake
+    (tri_shade f32[T,24], mat_packed f32[M,16])."""
     t_count = scene.tri_shade.shape[0]
     ti = jnp.clip(hit.tri, 0, t_count - 1)
     row = scene.tri_shade[ti]  # [N,24] — gather 1
@@ -766,7 +563,6 @@ def _shade(scene, state: WavefrontState, hit, cfg: RenderConfig,
         p_sample_light=jnp.where(lane, p_sample_light, state.p_sample_light),
         did_direct=jnp.where(lane, did_direct, state.did_direct),
         channel=channel,
-        pixel=state.pixel,
     )
     payload_hit = lane & sample_ok
     return new_state, payload_hit, shadow_rays
@@ -839,57 +635,12 @@ def _sample_dielectric(ray_dir, normal, front_facing, albedo, ior,
     return new_dir, tp, ok, channel, seed
 
 
-def _compact_prefix(n, depth, cfg: RenderConfig):
-    """Static lane-prefix size for deep-bounce compaction (None = run the
-    bounce full-size). Sized by compact_decay per RR'd depth, rounded up to
-    the kernel tile (1024 lanes); the caller verifies the live count fits
-    at runtime and falls back to full-size when it does not."""
-    if depth <= cfg.rr_start_depth:
-        return None
-    frac = cfg.compact_decay ** (depth - cfg.rr_start_depth)
-    k = max(1024, -(-int(n * frac) // 1024) * 1024)
-    return None if k >= n else k
-
-
-def render_wavefront(scene, camera_ubo, frame_number, cfg: RenderConfig,
-                     pixel_start=0, num_pixels=None, with_stats: bool = False,
-                     active=None, pixel_indices=None):
-    """One progressive sample for a contiguous pixel range: returns radiance
-    f32[N,3] (and a stats dict when with_stats=True).
-
-    This is the body of simple.rgen:70-125 (everything but accumulation).
-    `pixel_start`/`num_pixels` carve out a tile for multi-chip sharding
-    (parallel/sharding.py): seeds and camera rays use GLOBAL pixel indices so
-    a sharded render is bit-identical to a single-chip one.
-
-    `pixel_indices` (u32[N], overrides pixel_start/num_pixels) renders an
-    arbitrary — strided, repeated — set of global pixel ids: strided tiles
-    for width-vs-rate measurement (tools/r5_tilesize_lab.py), and repeated
-    ids with a per-lane `frame_number` vector batch S progressive samples
-    of one tile into a single launch (spp batching restores wavefront
-    width on small per-chip tiles). Lanes are per-pixel independent, so
-    each lane's radiance is bit-identical to the same (pixel, frame) lane
-    of any other launch shape.
-
-    `frame_number` may be a PER-PIXEL u32[N] vector (adaptive sampling:
-    each pixel's sample count is its own frame index, so seeds and the
-    frame-0 centered jitter stay per-pixel-correct). `active` (bool[N])
-    masks lanes out of the whole sample — their radiance is garbage and
-    the caller must not accumulate it (integrator/adaptive.py); lanes are
-    per-pixel independent, so active lanes are bit-identical to a run
-    without the mask. With a mask the depth-0 sort is forced on (inactive
-    lanes scattered in raster order would dilute every kernel group; the
-    sort coalesces them into groups that terminate in one pop)."""
-    cfg = cfg.resolve_accel()
-    if pixel_indices is not None:
-        pixel_idx = jnp.asarray(pixel_indices, jnp.uint32)
-        n = pixel_idx.shape[0]
-    else:
-        n = cfg.num_pixels if num_pixels is None else num_pixels
-        pixel_idx = (
-            jnp.asarray(pixel_start, jnp.uint32)
-            + jnp.arange(n, dtype=jnp.uint32)
-        )
+def primary_state(camera_ubo, frame_number, cfg: RenderConfig, pixel_idx,
+                  active=None) -> WavefrontState:
+    """Camera rays and fresh per-lane path state for the global pixel ids
+    `pixel_idx` (u32[N]) — the rgen prologue (simple.rgen:70-86).
+    `frame_number` is a scalar or a per-lane u32[N] vector."""
+    n = pixel_idx.shape[0]
     frame_u32 = jnp.asarray(frame_number, jnp.uint32)
     seed0 = rng.seed_pixels(pixel_idx, frame_u32)
 
@@ -910,8 +661,7 @@ def render_wavefront(scene, camera_ubo, frame_number, cfg: RenderConfig,
         camera_ubo["inverse_view"], camera_ubo["inverse_proj"],
         cfg.width, cfg.height, jitter, pixel_idx,
     )
-
-    state = WavefrontState(
+    return WavefrontState(
         origin=origin,
         direction=direction,
         color=jnp.zeros((n, 3), jnp.float32),
@@ -927,121 +677,111 @@ def render_wavefront(scene, camera_ubo, frame_number, cfg: RenderConfig,
         p_sample_light=jnp.zeros((n,), jnp.float32),
         did_direct=jnp.zeros((n,), bool),
         channel=jnp.full((n,), -1, jnp.int32),
-        pixel=jnp.arange(n, dtype=jnp.int32),
     )
 
+
+def end_of_bounce(state: WavefrontState, payload_hit, cfg: RenderConfig):
+    """After shading: the miss branch (simple.rgen:106-109, including the
+    failed-BSDF-sample quirk — payload.hit=false from rchit) and the
+    throughput validity kill (simple.rgen:115-118)."""
     clear_color = jnp.asarray(cfg.background, jnp.float32)
-
-    def bounce(depth, carry, do_sort=True):
-        state, rays_traced, shadow_total = carry
-        if cfg.accel == "pallas" and do_sort:
-            # Primary rays (depth 0) are raster-ordered already; sorting
-            # only pays for itself on bounce wavefronts — except under an
-            # active mask, where dead-lane coalescing pays from depth 0.
-            state = jax.lax.cond(
-                jnp.logical_or(depth > 0, active is not None),
-                lambda s: _sort_wavefront(s, scene),
-                lambda s: s,
-                state,
-            )
-        # Russian roulette (simple.rgen:55-68,88-90).
-        rr_lane = state.alive & (depth >= cfg.rr_start_depth)
-        lum = luminance_rec709(state.throughput)
-        p = jnp.minimum(jnp.maximum(lum, 0.05), 0.95)
-        r, seed_rgen = rng.rnd_masked(state.seed_rgen, rr_lane)
-        rr_kill = rr_lane & (r > p)
-        throughput = jnp.where(
-            (rr_lane & ~rr_kill)[:, None], state.throughput / p[:, None],
-            state.throughput,
-        )
-        state = state._replace(
-            seed_rgen=seed_rgen,
-            throughput=throughput,
-            alive=state.alive & ~rr_kill,
-        )
-
-        rays_traced = rays_traced + jnp.sum(state.alive.astype(jnp.int32))
-        hit = _trace(scene, state.origin, state.direction, cfg, state.alive)
-        state, payload_hit, shadow_rays = _shade(scene, state, hit, cfg)
-        shadow_total = shadow_total + shadow_rays
-
-        # Miss branch (simple.rgen:106-109), including the failed-BSDF-sample
-        # quirk (payload.hit=false from rchit).
-        missed = state.alive & ~payload_hit
-        state = state._replace(
-            color=jnp.where(
-                missed[:, None],
-                state.color + state.throughput * clear_color,
-                state.color,
-            ),
-            alive=state.alive & payload_hit,
-        )
-
-        # Throughput validity kill (simple.rgen:115-118).
-        tp = state.throughput
-        bad = (
-            jnp.any(jnp.isnan(tp) | jnp.isinf(tp), axis=-1)
-            | jnp.all(tp < 0.001, axis=-1)
-        )
-        return state._replace(alive=state.alive & ~bad), rays_traced, shadow_total
-
-    deep_compact = (
-        cfg.accel == "pallas" and cfg.compact_deep
-        and cfg.max_depth > cfg.rr_start_depth + 1
+    missed = state.alive & ~payload_hit
+    state = state._replace(
+        color=jnp.where(
+            missed[:, None],
+            state.color + state.throughput * clear_color,
+            state.color,
+        ),
+        alive=state.alive & payload_hit,
     )
-    if deep_compact:
-        # Depth-unrolled bounce loop with EXACT prefix compaction: the sort
-        # already orders dead lanes last, so once russian roulette starts
-        # culling, bounces run on a static prefix of the lane arrays when
-        # the live count fits (lax.cond picks the full-size path when it
-        # does not — bright scenes stay correct, just uncompacted).
-        # Excluded lanes are dead: bounce leaves them bit-identical, so
-        # compaction itself changes nothing; images differ from the
-        # fori_loop path only at the ULP level (different XLA fusion of the
-        # unrolled structure). This is the static-shape answer to wavefront
-        # compaction (SURVEY.md §5 pixels x bounces scaling).
-        carry = (state, jnp.int32(0), jnp.int32(0))
-        for depth in range(cfg.max_depth):
-            # Depth 0 sorts too under an active mask (same reason as the
-            # fori_loop path: coalesce retired lanes into one-pop groups).
-            if cfg.accel == "pallas" and (depth > 0 or active is not None):
-                st = _sort_wavefront(carry[0], scene)
-                carry = (st, carry[1], carry[2])
-            k = _compact_prefix(n, depth, cfg)
-            if k is None:
-                carry = bounce(depth, carry, do_sort=False)
-            else:
-                alive_count = jnp.sum(carry[0].alive.astype(jnp.int32))
+    tp = state.throughput
+    bad = (
+        jnp.any(jnp.isnan(tp) | jnp.isinf(tp), axis=-1)
+        | jnp.all(tp < 0.001, axis=-1)
+    )
+    return state._replace(alive=state.alive & ~bad)
 
-                def run_compact(carry, k=k, depth=depth):
-                    st, rt, sh = carry
-                    sub = jax.tree_util.tree_map(lambda a: a[:k], st)
-                    sub, rt, sh = bounce(depth, (sub, rt, sh),
-                                         do_sort=False)
-                    merged = jax.tree_util.tree_map(
-                        lambda full, part: full.at[:k].set(part), st, sub
-                    )
-                    return merged, rt, sh
 
-                def run_full(carry, depth=depth):
-                    return bounce(depth, carry, do_sort=False)
+def trace_bounce(scene, state: WavefrontState, depth, cfg: RenderConfig):
+    """One full bounce of the wavefront: russian roulette, closest-hit
+    trace, shading with NEE, then end_of_bounce. Returns
+    (state, rays_traced, shadow_rays)."""
+    # Russian roulette (simple.rgen:55-68,88-90).
+    rr_lane = state.alive & (depth >= cfg.rr_start_depth)
+    lum = luminance_rec709(state.throughput)
+    p = jnp.minimum(jnp.maximum(lum, 0.05), 0.95)
+    r, seed_rgen = rng.rnd_masked(state.seed_rgen, rr_lane)
+    rr_kill = rr_lane & (r > p)
+    throughput = jnp.where(
+        (rr_lane & ~rr_kill)[:, None], state.throughput / p[:, None],
+        state.throughput,
+    )
+    state = state._replace(
+        seed_rgen=seed_rgen,
+        throughput=throughput,
+        alive=state.alive & ~rr_kill,
+    )
 
-                carry = jax.lax.cond(
-                    alive_count <= k, run_compact, run_full, carry
-                )
-        state, rays_traced, shadow_total = carry
-    else:
-        state, rays_traced, shadow_total = jax.lax.fori_loop(
-            0, cfg.max_depth, bounce, (state, jnp.int32(0), jnp.int32(0))
-        )
+    rays_traced = jnp.sum(state.alive.astype(jnp.int32))
+    hit = _trace(scene, state.origin, state.direction, cfg, state.alive)
+    state, payload_hit, shadow_rays = _shade(scene, state, hit, cfg)
+    return end_of_bounce(state, payload_hit, cfg), rays_traced, shadow_rays
 
-    # Clamp + NaN scrub (simple.rgen:121-125).
+
+def finish_radiance(state: WavefrontState, cfg: RenderConfig):
+    """Clamp + NaN scrub (simple.rgen:121-125)."""
     final = jnp.minimum(state.color, cfg.radiance_clamp)
     invalid = jnp.any(jnp.isnan(final) | jnp.isinf(final), axis=-1)
-    radiance = jnp.where(invalid[:, None], 0.0, final)
-    if cfg.accel == "pallas":
-        # Undo the coherence sort: scatter lanes back to their pixels.
-        radiance = jnp.zeros_like(radiance).at[state.pixel].set(radiance)
+    return jnp.where(invalid[:, None], 0.0, final)
+
+
+def render_wavefront(scene, camera_ubo, frame_number, cfg: RenderConfig,
+                     pixel_start=0, num_pixels=None, with_stats: bool = False,
+                     active=None, pixel_indices=None):
+    """One progressive sample for a contiguous pixel range: returns radiance
+    f32[N,3] (and a stats dict when with_stats=True).
+
+    This is the body of simple.rgen:70-125 (everything but accumulation).
+    `pixel_start`/`num_pixels` carve out a tile for multi-chip sharding
+    (parallel/sharding.py): seeds and camera rays use GLOBAL pixel indices so
+    a sharded render is bit-identical to a single-chip one.
+
+    `pixel_indices` (u32[N], overrides pixel_start/num_pixels) renders an
+    arbitrary — strided, repeated — set of global pixel ids: strided tiles
+    for width-vs-rate measurement, and repeated
+    ids with a per-lane `frame_number` vector batch S progressive samples
+    of one tile into a single launch (spp batching restores wavefront
+    width on small per-chip tiles). Lanes are per-pixel independent, so
+    each lane's radiance is bit-identical to the same (pixel, frame) lane
+    of any other launch shape.
+
+    `frame_number` may be a PER-PIXEL u32[N] vector (adaptive sampling:
+    each pixel's sample count is its own frame index, so seeds and the
+    frame-0 centered jitter stay per-pixel-correct). `active` (bool[N])
+    masks lanes out of the whole sample — their radiance is garbage and
+    the caller must not accumulate it (integrator/adaptive.py); lanes are
+    per-pixel independent, so active lanes are bit-identical to a run
+    without the mask."""
+    cfg = cfg.resolve_accel()
+    if pixel_indices is not None:
+        pixel_idx = jnp.asarray(pixel_indices, jnp.uint32)
+    else:
+        n = cfg.num_pixels if num_pixels is None else num_pixels
+        pixel_idx = (
+            jnp.asarray(pixel_start, jnp.uint32)
+            + jnp.arange(n, dtype=jnp.uint32)
+        )
+    state = primary_state(camera_ubo, frame_number, cfg, pixel_idx, active)
+
+    def bounce(depth, carry):
+        state, rays_traced, shadow_total = carry
+        state, rays, shadows = trace_bounce(scene, state, depth, cfg)
+        return state, rays_traced + rays, shadow_total + shadows
+
+    state, rays_traced, shadow_total = jax.lax.fori_loop(
+        0, cfg.max_depth, bounce, (state, jnp.int32(0), jnp.int32(0))
+    )
+    radiance = finish_radiance(state, cfg)
     if with_stats:
         return radiance, {
             "rays_traced": rays_traced,
@@ -1077,9 +817,8 @@ def render_tile_spp_batched(scene, camera_ubo, accum_tile, frame_number,
     result matches S sequential `render_frame` steps up to XLA fusion
     reassociation (the suite's sharded-vs-single 1e-6 standard).
 
-    This is the measured small-tile mitigation (TILESIZE_LAB.json): per-chip
-    rate falls with wavefront width, and batching S samples restores the
-    width a small per-chip tile loses. Lanes are per-pixel independent, so
+    Batching S samples restores the wavefront width a small per-device
+    tile loses on a mesh. Lanes are per-pixel independent, so
     each lane's radiance is the same as the same (pixel, frame) lane of a
     1-spp launch."""
     S = cfg.spp_batch

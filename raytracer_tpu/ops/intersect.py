@@ -1,6 +1,6 @@
 """Ray-triangle intersection: Möller–Trumbore, batched.
 
-The TPU replacement for fixed-function `traceRayEXT` triangle tests. Two
+The software replacement for fixed-function `traceRayEXT` triangle tests. Two
 entry points:
 
   - `intersect_brute`: O(T) scan of every triangle against every ray — the

@@ -1,22 +1,23 @@
-"""Vectorized stackless BVH traversal — the TPU `traceRayEXT`.
+"""Vectorized stackless BVH traversal — the software `traceRayEXT`.
 
 Replaces the hardware traversal of `traceRayEXT`/`rayQueryEXT`
 (simple.rgen:92-104, simple.rchit:362-371) with a lockstep walk of the
-flattened skip-link BVH (accel/bvh.py) over the whole ray wavefront.
+flattened skip-link BVH (accel/bvh.py) over the whole ray wavefront. This
+is plain jnp/lax left to XLA, and the only compiled traversal path;
+ops/intersect.py (brute force) is its oracle.
 
-TPU-shaped memory layout (scene/device_scene.py `_pack_traversal_arrays`):
+Memory layout (scene/device_scene.py `_pack_traversal_arrays`):
   - one [N] gather of nodes_packed f32[NN,8] fetches AABB + links per step,
   - one [N] gather of tris_packed f32[NB,LEAF,12] fetches a WHOLE leaf block
     (padding rows are degenerate and never intersect, so no count masking),
   - the LEAF-wide Möller–Trumbore runs batched on [N,LEAF] with a single
     min-reduction — one fused kernel instead of LEAF sequential tests.
 
-The `lax.while_loop` dominates cost through its per-iteration kernel-launch
-overhead times the MAXIMUM per-ray visit count (lockstep SIMD), so each
-iteration advances UNROLL micro-steps: same total gather traffic, 1/UNROLL
-the launches. Rays that finish idle until the wavefront drains — the
-mitigation is wavefront coherence (camera/bounce tiles share BVH paths) and
-the SAH tree keeping max/avg visits ~3x (measured on the 300k-tri atrium).
+Each `lax.while_loop` iteration is a launch sequence whose count is the
+MAXIMUM per-ray visit count (lockstep), so each iteration advances UNROLL
+micro-steps: same total gather traffic, 1/UNROLL the iterations. Rays that
+finish idle until the wavefront drains; the SAH tree keeps the spread of
+visit counts down.
 
 Two variants: `intersect_bvh` (closest hit) and `occlusion_bvh` (any hit
 with an object-id skip mask, terminating each lane at first accepted hit).

@@ -2,9 +2,9 @@
 
 The reference's only parallelism is per-pixel SPMD within one GPU
 (`vkCmdTraceRaysKHR(width, height, 1)`, command_buffer.odin:261-273); it has
-no multi-device code at all (SURVEY.md §2.7). The TPU-native scaling story:
+no multi-device code at all (SURVEY.md §2.7). The scaling story here:
 
-  - 1-D `jax.sharding.Mesh` over all chips, axis "pixels".
+  - 1-D `jax.sharding.Mesh` over all devices, axis "pixels".
   - The accumulation buffer f32[N,3] is sharded on its pixel dim; the scene
     pytree is fully replicated (scenes are small; rays are embarrassingly
     parallel, so this is pure DP — no TP/PP/EP analog exists or is invented).
@@ -13,8 +13,9 @@ no multi-device code at all (SURVEY.md §2.7). The TPU-native scaling story:
     bit-identical to the single-chip one.
   - There are NO collectives in the hot loop: tiles are disjoint, the scene
     is read-only. The only cross-chip traffic is the final tile gather when
-    the host assembles the image (jax.device_get on the sharded array rides
-    ICI/DCN via XLA's gather), exactly as SURVEY.md §2.7 prescribes.
+    the host assembles the image (jax.device_get on the sharded array
+    rides the device interconnect via XLA's gather), exactly as SURVEY.md
+    §2.7 prescribes.
 """
 
 from __future__ import annotations
@@ -76,9 +77,8 @@ def render_frame_sharded(scene, camera_ubo, accum, frame_number,
         tile = jax.lax.axis_index(AXIS)
         start = tile.astype(jnp.uint32) * jnp.uint32(n_local)
         if cfg.spp_batch > 1:
-            # The measured small-tile mitigation (TILESIZE_LAB.json): S
-            # jittered samples of this tile in ONE launch restore the
-            # wavefront width a small per-chip tile loses.
+            # S jittered samples of this tile in ONE launch restore the
+            # wavefront width a small per-device tile loses.
             from raytracer_tpu.integrator.wavefront import (
                 render_tile_spp_batched,
             )

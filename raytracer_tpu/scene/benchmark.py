@@ -10,14 +10,13 @@ to be generated. Two deterministic scenes:
   room with an emissive ceiling panel — architectural occlusion (columns
   shadowing each other), mixed materials, triangle count tunable to Sponza
   scale. Uniform-density sphere lattice: the SAH happy path.
-- `create_benchmark_hall`: a Sponza-geometry-class stress scene (VERDICT r4
-  item 7). Sponza's distinguishing properties
-  (/root/reference/models/sponza/sponza.gltf node/mesh structure: curtain
-  and drape meshes alongside full-hall floor/wall slabs) are long thin
-  quads (drapes, ceiling beams), a >100:1 triangle-scale mix (60-unit wall
-  triangles vs ~0.1-unit drape cells), and occlusion corridors (two colonnade
-  rows down a long hall, lit from one end) — all of which stress SAH split
-  quality and VMEM part-affinity sorting off the atrium's happy path.
+- `create_benchmark_hall`: a Sponza-geometry-class stress scene. Sponza's
+  distinguishing properties (the reference's sponza.gltf node/mesh
+  structure: curtain and drape meshes alongside full-hall floor/wall
+  slabs) are long thin quads (drapes, ceiling beams), a >100:1
+  triangle-scale mix (60-unit wall triangles vs ~0.1-unit drape cells), and
+  occlusion corridors (two colonnade rows down a long hall, lit from one
+  end) — all of which stress SAH split quality off the atrium's happy path.
 """
 
 from __future__ import annotations
@@ -178,13 +177,13 @@ def _create_drape(nx: int, ny: int, waves: float = 3.0,
 
 
 def create_benchmark_hall(target_triangles: int = 300_000) -> Scene:
-    """Sponza-class stress hall (VERDICT r4 item 7): a 60x12x15 corridor,
+    """Sponza-class stress hall: a 60x12x15 corridor,
     two colonnade rows of square pillars, long thin ceiling beams, and
     tessellated drapes hanging between the pillars, lit by one emissive
     panel at the far end plus a narrow skylight strip. Geometry
-    distribution modeled on /root/reference/models/sponza/sponza.gltf
+    distribution modeled on the reference's models/sponza/sponza.gltf
     (curtain/drape meshes alongside full-hall slabs; loader semantics
-    /root/reference/src/raytracer/scene_loader.odin:102-187):
+    src/raytracer/scene_loader.odin:102-187):
 
     - long thin quads: beams are 15-unit-long x 0.25-unit boxes (60:1),
       pillar faces are 9x0.9 (10:1)

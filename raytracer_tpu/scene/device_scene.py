@@ -1,6 +1,6 @@
 """SceneOnDevice: the baked, device-resident scene pytree.
 
-TPU-native equivalent of the reference's GPU-scene compiler
+Device-resident equivalent of the reference's GPU-scene compiler
 (`src/raytracer/gpu_scene.odin:45-428`): instead of per-mesh device buffers
 addressed via buffer_device_address + a TLAS of instances, the whole scene is
 flattened into padded SoA arrays at bake time:
@@ -28,18 +28,12 @@ pixel tiles are what gets sharded (parallel/sharding.py).
 from __future__ import annotations
 
 import dataclasses
-import logging
 from typing import Tuple
 
 import jax
 import numpy as np
 
-from raytracer_tpu.accel.bvh import (
-    BVH,
-    build_bvh,
-    build_bvh_split,
-    collapse_bvh4,
-)
+from raytracer_tpu.accel.bvh import BVH, build_bvh
 from raytracer_tpu.scene.model import Scene
 
 _PAD = 128  # pad triangle count to a lane multiple
@@ -68,37 +62,13 @@ class SceneOnDevice:
     # --- packed single-gather layouts for the hot traversal loop ---
     # nodes_packed f32[NN,8]: min.xyz, max.xyz, bitcast(skip),
     #   bitcast(meta) with meta = ~leaf_block_id (< 0) for leaves and
-    #   meta = right-child index (>= 0) for internal nodes, serving both the
-    #   skip-link XLA walk and the stack-based Pallas packet kernel.
+    #   meta = right-child index (>= 0) for internal nodes.
     nodes_packed: jax.Array
     # tris_packed f32[NB, LEAF, 12]: leaf-blocked v0.xyz, e1.xyz, e2.xyz,
     #   bitcast(global tri index), bitcast(object), pad — ONE gather with [N]
     #   block ids fetches whole leaves; padding rows are degenerate (never
     #   intersect), so no count masking is needed in the hot loop.
     tris_packed: jax.Array
-    # Pallas packet-kernel layouts (row-per-element: Mosaic allows dynamic
-    # SUBLANE indices but lane indices must be static; integer metadata is
-    # stored as exact small-integer f32 because scalar bitcasts are
-    # unsupported — see ops/pallas_traverse.py):
-    # pnodes f32[NI,16]: one row per INTERNAL node = left.min/max xyz,
-    #   right.min/max xyz, lane 12/13 = child metas as f32
-    #   (>=0: internal row index, <0: ~leaf_block).
-    # ptris f32[NB, leaf_size*12]: one row per leaf block = leaf_size x
-    #   (v0, e1, e2, tri_f, obj_f, pad), stride 12 (96 lanes at the default
-    #   leaf size of 8).
-    # root_meta i32[1]: the root's meta descriptor.
-    # pmeta i32[2*NI]: child metas ([2n]=left, [2n+1]=right) as a flat SMEM
-    #   array so the sub-packet kernel's push routing stays on the scalar
-    #   core (no vector->scalar extracts for metas).
-    pnodes: jax.Array
-    ptris: jax.Array
-    root_meta: jax.Array
-    pmeta: jax.Array
-
-    # World bounds (for Morton-code ray sorting between bounces).
-    scene_min: jax.Array  # f32[3]
-    scene_max: jax.Array  # f32[3]
-
     # Shading fast path: ONE gather per hit instead of ~16 (XLA gathers are
     # row-throughput-bound, ~40-80M rows/s, so packing dominates shade cost).
     # tri_shade f32[T,24]: v0(3) e1(3) e2(3) n0(3) n1(3) n2(3) obj_f mat_f
@@ -151,51 +121,10 @@ class SceneOnDevice:
     light_meta_packed: jax.Array
     light_tri_packed: jax.Array
 
-    # 4-wide collapsed tree for the production sub-packet kernel
-    # (accel/bvh.py:collapse_bvh4): qnodes f32[N4,32] (4 child boxes + 4
-    # metas per row — ONE dynamic read per internal step), qmeta i32[4*N4]
-    # (scalar-side push routing), qroot i32[1]. Leaf blocks (ptris) are
-    # shared with the binary layouts. With parts, these carry the leading
-    # [P] axis like pnodes/ptris.
-    qnodes: jax.Array
-    qmeta: jax.Array
-    qroot: jax.Array
-
     # --- static metadata ---
     num_triangles: int = dataclasses.field(metadata=dict(static=True))
     num_lights: int = dataclasses.field(metadata=dict(static=True))
     num_objects: int = dataclasses.field(metadata=dict(static=True))
-    # Max BVH node depth (root=0). The Pallas packet kernel's SMEM stack
-    # holds at most depth+2 entries per DFS; callers must check this
-    # against STACK_CAP instead of assuming balanced trees.
-    bvh_max_depth: int = dataclasses.field(
-        default=0, metadata=dict(static=True)
-    )
-    # Scenes whose packed traversal arrays exceed the VMEM budget are cut
-    # into `num_parts` SUBTREE parts of the one global SAH tree (each part =
-    # a contiguous preorder slice); pnodes/ptris/root_meta/pmeta then carry a
-    # leading [P] axis and the sub-packet kernel folds best-t (closest) or
-    # the occlusion mask across sequential per-part passes. The reference
-    # handles arbitrary scene sizes with 256 MB-batched AS builds
-    # (gpu_scene.odin:279-315); on TPU the analog is batching the VMEM
-    # working set, not the build.
-    num_parts: int = dataclasses.field(
-        default=1, metadata=dict(static=True)
-    )
-    # Max node depth across parts (kernel stack check); -1 = bvh_max_depth.
-    part_max_depth: int = dataclasses.field(
-        default=-1, metadata=dict(static=True)
-    )
-    # Per-row SMEM stack bound of the 4-ary kernel (3 entries per quad
-    # level; max over parts). 0 = derive conservatively from kernel depth.
-    q_stack_need: int = dataclasses.field(
-        default=0, metadata=dict(static=True)
-    )
-    # Part root AABBs f32[P,6] (min.xyz, max.xyz), only when num_parts > 1:
-    # the kernels order the sequential per-part passes near-to-far from the
-    # wavefront centroid so the folded best-t/occlusion cap actually prunes
-    # later parts (ordering cannot change results — it only tightens caps).
-    part_aabb: jax.Array = None
     # Stable-shape (capacity-padded) bakes only: i32[4] device scalar array
     # [true_tris, true_lights, true_objects, true_refs]. Under
     # `bake_scene(stable_shapes=True)` every table is padded to a geometric
@@ -208,24 +137,6 @@ class SceneOnDevice:
     @property
     def num_nodes(self) -> int:
         return self.nodes_skip.shape[0]
-
-    @property
-    def kernel_max_depth(self) -> int:
-        return (self.part_max_depth if self.part_max_depth >= 0
-                else self.bvh_max_depth)
-
-    @property
-    def pallas_vmem_bytes(self) -> int:
-        """VMEM footprint of the sub-packet kernel's scene arrays PER PASS
-        (rows pad their last dim UP to a multiple of 128 lanes in VMEM —
-        a 192-float leaf row at leaf_size 16 costs 256 lanes; with parts,
-        one part is resident at a time). The 4-wide qnodes halve the node
-        rows vs the binary layout."""
-        qn_lanes = -(-self.qnodes.shape[-1] // 128) * 128
-        pt_lanes = -(-self.ptris.shape[-1] // 128) * 128
-        return (self.qnodes.shape[-2] * qn_lanes
-                + self.ptris.shape[-2] * pt_lanes) * 4
-
 
 def _pad_rows(a: np.ndarray, total: int, fill=0.0) -> np.ndarray:
     if len(a) == total:
@@ -330,185 +241,9 @@ def _pack_materials(materials):
     return out
 
 
-def _pack_pallas_arrays(bvh, v0, e1, e2, tri_object, leaf_size):
-    """Row-per-element layouts for the Pallas packet kernel (see
-    SceneOnDevice field docs). Integer metadata is stored as exact
-    small-integer f32 (|v| < 2^24, asserted)."""
-    nn = bvh.num_nodes
-    is_leaf = bvh.nodes_count > 0
-    leaf_ids = (np.cumsum(is_leaf) - 1).astype(np.int64)
-    internal_ids = (np.cumsum(~is_leaf) - 1).astype(np.int64)
-    nb = max(1, int(is_leaf.sum()))
-    ni = max(1, int((~is_leaf).sum()))
-    assert nb < (1 << 24) and nn < (1 << 24) and len(v0) < (1 << 24)
-
-    def meta_of(node):
-        return ~leaf_ids[node] if is_leaf[node] else internal_ids[node]
-
-    pnodes = np.zeros((ni, 16), np.float32)
-    internal_nodes = np.nonzero(~is_leaf)[0]
-    if len(internal_nodes):
-        left = internal_nodes + 1
-        right = bvh.nodes_skip[left]  # end of left subtree = right child
-        rows = internal_ids[internal_nodes]
-        pnodes[rows, 0:3] = bvh.nodes_min[left]
-        pnodes[rows, 3:6] = bvh.nodes_max[left]
-        pnodes[rows, 6:9] = bvh.nodes_min[right]
-        pnodes[rows, 9:12] = bvh.nodes_max[right]
-        lmeta = np.where(is_leaf[left], ~leaf_ids[left], internal_ids[left])
-        rmeta = np.where(is_leaf[right], ~leaf_ids[right],
-                         internal_ids[right])
-        pnodes[rows, 12] = lmeta.astype(np.float32)
-        pnodes[rows, 13] = rmeta.astype(np.float32)
-
-    pmeta = np.zeros((2 * ni,), np.int32)
-    if len(internal_nodes):
-        pmeta[2 * rows] = lmeta.astype(np.int32)
-        pmeta[2 * rows + 1] = rmeta.astype(np.int32)
-
-    ptris = np.zeros((nb, leaf_size * 12), np.float32)
-    if is_leaf.any():
-        lf = bvh.nodes_first[is_leaf].astype(np.int64)
-        lc = np.minimum(bvh.nodes_count[is_leaf], leaf_size).astype(np.int64)
-        idx = lf[:, None] + np.arange(leaf_size)
-        valid = np.arange(leaf_size)[None, :] < lc[:, None]
-        idxc = np.clip(idx, 0, len(v0) - 1)
-        vm = valid[..., None]
-        blocks = np.zeros((nb, leaf_size, 12), np.float32)
-        blocks[:, :, 0:3] = np.where(vm, v0[idxc], 0.0)
-        blocks[:, :, 3:6] = np.where(vm, e1[idxc], 0.0)
-        blocks[:, :, 6:9] = np.where(vm, e2[idxc], 0.0)
-        blocks[:, :, 9] = np.where(valid, idxc, 0).astype(np.float32)
-        blocks[:, :, 10] = np.where(valid, tri_object[idxc], -1).astype(
-            np.float32
-        )
-        ptris = blocks.reshape(nb, leaf_size * 12)
-
-    root_meta = np.asarray([meta_of(0)], np.int32)
-    return pnodes, ptris, root_meta, pmeta
-
-
-def _cut_parts(bvh, budget_bytes: int, leaf_row_units: int = 1):
-    """Cut the global tree into the shallowest set of subtrees whose packed
-    pallas arrays each fit `budget_bytes` (a node row costs 128 lanes x 4 B
-    = 512 B of VMEM; a leaf-block row costs `leaf_row_units` x 512 B — its
-    leaf_size*TRI_STRIDE floats pad up to a multiple of 128 lanes). Returns
-    [(i, j)] preorder node ranges covering the whole tree, in preorder
-    (= spatial DFS) order."""
-    is_leaf = bvh.nodes_count > 0
-    leaf_psum = np.concatenate([[0], np.cumsum(is_leaf)])
-    budget_rows = budget_bytes // 512
-    parts = []
-    stack = [0]
-    while stack:
-        i = stack.pop()
-        j = int(bvh.nodes_skip[i])
-        nb = int(leaf_psum[j] - leaf_psum[i])
-        ni = (j - i) - nb
-        # The kernel loads the 4-wide collapsed nodes next to the leaf
-        # blocks. Quad count: absorbed nodes are exactly the internal
-        # children of quad roots, and roots/absorbed alternate along parent
-        # chains, so n4 <= 2*ni/3 + 1 (typical ~ni/2).
-        if (max(nb, 1) * leaf_row_units + (2 * max(ni, 1)) // 3 + 2
-                <= budget_rows or is_leaf[i]):
-            parts.append((i, j))
-        else:
-            left = i + 1
-            right = int(bvh.nodes_skip[left])
-            stack.append(right)
-            stack.append(left)
-    parts.sort()
-    # Ancestor internal nodes above the cut belong to no part (each part
-    # re-roots); what must hold is that the parts are disjoint and cover
-    # every LEAF exactly once.
-    covered = sum(int(leaf_psum[j] - leaf_psum[i]) for i, j in parts)
-    assert covered == int(leaf_psum[-1]), (covered, int(leaf_psum[-1]))
-    for (a, b), (c, d) in zip(parts, parts[1:]):
-        assert b <= c, "overlapping parts"
-    return parts
-
-
-def _slice_bvh(bvh, i: int, j: int) -> BVH:
-    """View the subtree [i, j) of the flattened preorder arrays as a
-    standalone BVH. Skip links are rebased (exits clamp to the slice end);
-    `nodes_first` keeps indexing the GLOBAL permuted triangle rows, so packed
-    leaf blocks carry global tri ids with no re-store."""
-    size = j - i
-    parent = bvh.parent[i:j] - i
-    parent = parent.copy()
-    parent[0] = -1
-    return BVH(
-        nodes_min=bvh.nodes_min[i:j],
-        nodes_max=bvh.nodes_max[i:j],
-        nodes_skip=np.minimum(bvh.nodes_skip[i:j] - i, size).astype(np.int32),
-        nodes_first=bvh.nodes_first[i:j],
-        nodes_count=bvh.nodes_count[i:j],
-        tri_order=bvh.tri_order,
-        parent=parent,
-    )
-
-
-def _pack_pallas_parts(bvh, v0p, e1p, e2p, tri_object_p, leaf_size,
-                       budget_bytes):
-    """Per-part packed pallas arrays (binary + 4-wide collapsed), padded to
-    the largest part and stacked with a leading [P] axis. Returns
-    (pnodes, ptris, root_meta, pmeta, qnodes, qmeta, qroot, part_max_depth,
-    q_stack_need)."""
-    leaf_row_units = -(-(leaf_size * 12) // 128)  # 512-B units per leaf row
-    parts = _cut_parts(bvh, budget_bytes, leaf_row_units)
-    packs = []
-    qpacks = []
-    aabbs = []
-    max_depth = 0
-    stack_need = 0
-    for (i, j) in parts:
-        sb = _slice_bvh(bvh, i, j)
-        aabbs.append(np.concatenate([sb.nodes_min[0], sb.nodes_max[0]]))
-        packs.append(_pack_pallas_arrays(
-            sb, v0p, e1p, e2p, tri_object_p, leaf_size
-        ))
-        qn, qm, qr, need = collapse_bvh4(sb)
-        assert (qn.shape[0]
-                + packs[-1][1].shape[0] * leaf_row_units) * 512 \
-            <= budget_bytes, (
-            "part exceeds the VMEM budget after collapse — the n4 bound in "
-            "_cut_parts is violated"
-        )
-        qpacks.append((qn, qm, qr))
-        stack_need = max(stack_need, need)
-        max_depth = max(max_depth, sb.max_depth())
-    p = len(packs)
-    ni = max(pk[0].shape[0] for pk in packs)
-    nb = max(pk[1].shape[0] for pk in packs)
-    w = packs[0][1].shape[1]
-    pnodes = np.zeros((p, ni, 16), np.float32)
-    ptris = np.zeros((p, nb, w), np.float32)
-    root_meta = np.zeros((p, 1), np.int32)
-    pmeta = np.zeros((p, 2 * ni), np.int32)
-    n4 = max(qp[0].shape[0] for qp in qpacks)
-    qnodes = np.full((p, n4, 32), np.nan, np.float32)
-    qnodes[:, :, 28:32] = 0.0
-    qmeta = np.zeros((p, 4 * n4), np.int32)
-    qroot = np.zeros((p, 1), np.int32)
-    for k, (pn, pt, rm, pm) in enumerate(packs):
-        pnodes[k, : pn.shape[0]] = pn
-        ptris[k, : pt.shape[0]] = pt
-        root_meta[k] = rm
-        pmeta[k, : pm.shape[0]] = pm
-        qn, qm, qr = qpacks[k]
-        qnodes[k, : qn.shape[0]] = qn
-        qmeta[k, : qm.shape[0]] = qm
-        qroot[k] = qr
-    part_aabb = np.stack(aabbs).astype(np.float32)
-    return (pnodes, ptris, root_meta, pmeta, qnodes, qmeta, qroot,
-            max_depth, stack_need, part_aabb)
-
-
-def bake_scene(scene: Scene, leaf_size: int = 16,
+def bake_scene(scene: Scene, leaf_size: int = 8,
                device_put: bool = True,
                reuse_bvh: BVH = None,
-               pallas_budget_bytes: int = None,
-               pack_pallas: bool = True,
                stable_shapes: bool = False) -> Tuple[SceneOnDevice, BVH]:
     """Flatten + world-transform + BVH-build a CPU Scene.
 
@@ -522,12 +257,6 @@ def bake_scene(scene: Scene, leaf_size: int = 16,
     basis are unchanged (transform edits); quality degrades under large
     motion exactly like a driver refit.
 
-    `pack_pallas=False` skips the pallas-kernel layouts (pnodes/ptris +
-    the 4-wide collapse qnodes/qmeta/qroot) entirely — accel='bvh'/'brute'
-    renderers never read them, and the collapse costs host bake time plus
-    ~512 B/row of device memory (placeholder 1-row arrays keep the pytree
-    structure).
-
     `stable_shapes=True` pads every table to a geometric capacity bucket
     (≤ +12.5% rows) and sets the static counts to TABLE sizes, so small
     topology edits re-bake into the SAME jit signature: object add/remove
@@ -536,9 +265,7 @@ def bake_scene(scene: Scene, leaf_size: int = 16,
     gpu_scene.odin:430-455). Image-neutral by construction: padded lights
     carry zero selection weight and zero emission, padded triangles are
     degenerate, padded tree rows are unreachable (done-skips are rewritten
-    past the padding). Skipped (with a log) for multi-part bakes and when
-    padding would push the kernel arrays over `pallas_budget_bytes`.
-    Exact counts ride in the `true_counts` device leaf.
+    past the padding). Exact counts ride in the `true_counts` device leaf.
     """
     if not scene.objects:
         raise ValueError("cannot bake an empty scene")
@@ -609,11 +336,8 @@ def bake_scene(scene: Scene, leaf_size: int = 16,
         perm = bvh.tri_order
         bvh.refit(v0[perm], e1[perm], e2[perm])
     else:
-        # NOTE: spatial reference splitting (build_bvh_split) measured -16%
-        # end-to-end on the 300k-tri bench: the split pieces of large tris
-        # appear in many leaves and every such leaf visit re-tests the full
-        # triangle, so packet/sub-packet unions GROW. Kept available for
-        # scenes with genuinely mixed triangle scales, off by default.
+        # Spatial reference splitting (accel/bvh.py:build_bvh_split) is
+        # kept available for scenes with mixed triangle scales; off here.
         bvh = build_bvh(v0, e1, e2, leaf_size=leaf_size)
         bvh.input_tris = num_tris
         perm = bvh.tri_order
@@ -627,61 +351,11 @@ def bake_scene(scene: Scene, leaf_size: int = 16,
     nodes_packed, tris_packed = _pack_traversal_arrays(
         bvh, v0p, e1p, e2p, tri_object_p, leaf_size
     )
-    num_parts = 1
-    part_max_depth = -1
-    part_aabb = None
-    if pack_pallas:
-        pnodes, ptris, root_meta, pmeta = _pack_pallas_arrays(
-            bvh, v0p, e1p, e2p, tri_object_p, leaf_size
-        )
-        qnodes, qmeta, qroot, q_stack_need = collapse_bvh4(bvh)
-        if (pallas_budget_bytes is not None
-                and pallas_budget_bytes >= (1 << 16)  # degenerate (~0)
-                # budgets fall back to the single-part bake (api then picks
-                # accel='bvh') instead of exploding into per-leaf parts
-                and (qnodes.shape[0]
-                     + ptris.shape[0] * (-(-(leaf_size * 12) // 128))) * 512
-                > pallas_budget_bytes):
-            (pnodes, ptris, root_meta, pmeta, qnodes, qmeta, qroot,
-             part_max_depth, q_stack_need, part_aabb) = _pack_pallas_parts(
-                bvh, v0p, e1p, e2p, tri_object_p, leaf_size,
-                pallas_budget_bytes
-            )
-            num_parts = pnodes.shape[0]
-    else:
-        # Placeholder rows: keep the pytree fields present (and harmlessly
-        # tiny) for accels that never read them.
-        pnodes = np.zeros((1, 16), np.float32)
-        ptris = np.zeros((1, leaf_size * 12), np.float32)
-        root_meta = np.zeros((1,), np.int32)
-        pmeta = np.zeros((2,), np.int32)
-        qnodes = np.full((1, 32), np.nan, np.float32)
-        qmeta = np.zeros((4,), np.int32)
-        qroot = np.zeros((1,), np.int32)
-        q_stack_need = 1
-
-    # --- stable-shape (capacity) decision -------------------------------
-    stable = bool(stable_shapes) and num_parts == 1
-    if stable and pack_pallas and pallas_budget_bytes is not None:
-        leaf_units = -(-(leaf_size * 12) // 128)
-        padded_rows = (_bucket(qnodes.shape[0], 64)
-                       + _bucket(ptris.shape[0], 64) * leaf_units)
-        if padded_rows * 512 > pallas_budget_bytes:
-            logging.getLogger(__name__).info(
-                "stable_shapes disabled: capacity padding would exceed the "
-                "pallas VMEM budget"
-            )
-            stable = False
-    if stable_shapes and num_parts > 1:
-        logging.getLogger(__name__).info(
-            "stable_shapes disabled: multi-part bake (%d parts)", num_parts
-        )
-
     # --- pad triangle tables to lane multiple with degenerate triangles ---
-    t_pad = (_bucket(num_refs, _PAD) if stable
+    t_pad = (_bucket(num_refs, _PAD) if stable_shapes
              else max(_PAD, ((num_refs + _PAD - 1) // _PAD) * _PAD))
 
-    # Node + kernel tables: exact by default; capacity-padded when stable.
+    # Node tables: exact by default; capacity-padded under stable shapes.
     # Padded node rows are UNREACHABLE — traversal enters nodes only via
     # descend (cur+1 within the real preorder) or skip links, and every
     # "done" skip (== real node count) is rewritten to point past the
@@ -689,7 +363,7 @@ def bake_scene(scene: Scene, leaf_size: int = 16,
     nodes_min_a, nodes_max_a = bvh.nodes_min, bvh.nodes_max
     nodes_skip_a = bvh.nodes_skip
     nodes_first_a, nodes_count_a = bvh.nodes_first, bvh.nodes_count
-    if stable:
+    if stable_shapes:
         nn_real = bvh.num_nodes
         nn_cap = _bucket(nn_real, 64)
         skip_rw = np.where(bvh.nodes_skip >= nn_real, nn_cap,
@@ -708,21 +382,6 @@ def bake_scene(scene: Scene, leaf_size: int = 16,
         nodes_packed = np.concatenate([nodes_packed, np_pad])
         tris_packed = _pad_rows(tris_packed,
                                 _bucket(tris_packed.shape[0], 64))
-        if pack_pallas:
-            ni_cap = _bucket(pnodes.shape[0], 64)
-            pn_pad = np.full((ni_cap - pnodes.shape[0], 16), np.nan,
-                             np.float32)
-            pn_pad[:, 12:16] = 0.0
-            pnodes = np.concatenate([pnodes, pn_pad])
-            pmeta = _pad_rows(pmeta, 2 * ni_cap)
-            ptris = _pad_rows(ptris, _bucket(ptris.shape[0], 64))
-            n4_cap = _bucket(qnodes.shape[0], 64)
-            q_pad = np.full((n4_cap - qnodes.shape[0], 32), np.nan,
-                            np.float32)
-            q_pad[:, 28:32] = 0.0
-            qnodes = np.concatenate([qnodes, q_pad])
-            qmeta = _pad_rows(qmeta, 4 * n4_cap)
-
     materials = scene.materials
 
     # --- packed light tables (see SceneOnDevice field docs) ---
@@ -793,9 +452,7 @@ def bake_scene(scene: Scene, leaf_size: int = 16,
     l_tab, o_tab, m_tab, t_tab = (num_lights, len(scene.objects),
                                   len(materials), num_tris)
     true_counts = None
-    depth_tab = bvh.max_depth()
-    qstack_tab = q_stack_need
-    if stable:
+    if stable_shapes:
         l_tab = _bucket(num_lights, 4) if num_lights else 0
         o_tab = _bucket(len(scene.objects), 16)
         m_tab = _bucket(len(materials), 8)
@@ -821,10 +478,7 @@ def bake_scene(scene: Scene, leaf_size: int = 16,
         for k in mat_cols:
             mat_cols[k] = _pad_rows(
                 mat_cols[k], m_tab, fill=1.0 if k == "mat_ior" else 0.0)
-        # Statics hold TABLE sizes under stable shapes; depth/stack bounds
-        # round up so small rebuilds keep the jit signature.
-        depth_tab = -(-depth_tab // 8) * 8
-        qstack_tab = -(-q_stack_need // 8) * 8
+        # Statics hold TABLE sizes under stable shapes.
         true_counts = np.asarray(
             [num_tris, num_lights, len(scene.objects), num_refs], np.int32)
 
@@ -847,20 +501,6 @@ def bake_scene(scene: Scene, leaf_size: int = 16,
         nodes_count=as_device(nodes_count_a),
         nodes_packed=as_device(nodes_packed),
         tris_packed=as_device(tris_packed),
-        pnodes=as_device(pnodes),
-        ptris=as_device(ptris),
-        root_meta=as_device(root_meta),
-        pmeta=as_device(pmeta),
-        scene_min=as_device(
-            np.minimum.reduce(
-                [v0.min(0), (v0 + e1).min(0), (v0 + e2).min(0)]
-            ).astype(np.float32)
-        ),
-        scene_max=as_device(
-            np.maximum.reduce(
-                [v0.max(0), (v0 + e1).max(0), (v0 + e2).max(0)]
-            ).astype(np.float32)
-        ),
         tri_shade=as_device(
             _pack_tri_shade(
                 _pad_rows(v0p, t_pad), _pad_rows(e1p, t_pad),
@@ -893,17 +533,9 @@ def bake_scene(scene: Scene, leaf_size: int = 16,
         obj_light_index=as_device(obj_light_index_arr),
         light_meta_packed=as_device(light_meta),
         light_tri_packed=as_device(light_tri_packed),
-        qnodes=as_device(qnodes),
-        qmeta=as_device(qmeta),
-        qroot=as_device(qroot),
         num_triangles=t_tab,
         num_lights=l_tab,
         num_objects=o_tab,
-        bvh_max_depth=depth_tab,
-        num_parts=num_parts,
-        part_max_depth=part_max_depth,
-        q_stack_need=qstack_tab,
-        part_aabb=(as_device(part_aabb) if part_aabb is not None else None),
         true_counts=(as_device(true_counts) if true_counts is not None
                      else None),
     )
@@ -916,8 +548,8 @@ def update_materials(ds: SceneOnDevice, scene: Scene,
     gpu_scene.odin:560-601): rewrite the material SoA and light emissions
     without touching geometry or the BVH. Falls back to a full bake when the
     set of emissive objects changed (the reference also rebuilds lights +
-    TLAS masks in that case); `bake_kwargs` (leaf_size, pallas_budget_bytes,
-    pack_pallas, ...) parameterize that fallback bake."""
+    TLAS masks in that case); `bake_kwargs` (leaf_size, stable_shapes)
+    parameterize that fallback bake."""
     mats = scene.materials
     emissive_now = [
         oi for oi, o in enumerate(scene.objects)

@@ -38,19 +38,6 @@ class RenderConfig:
     # Russian roulette starts at this bounce depth (simple.rgen:55-68).
     rr_start_depth: int = 3
 
-    # Deep-bounce wavefront compaction (pallas accel, max_depth >
-    # rr_start_depth + 1 only): after the dead-last sort, bounces past the
-    # RR onset run on a static prefix of the lane arrays sized by
-    # compact_decay^(depth - rr_start_depth) when the live count fits
-    # (checked at runtime; oversized frames take the full-size path).
-    # Excluded lanes are dead and bit-untouched, so compaction itself is
-    # exact; images differ from the uncompacted path only at the ULP level
-    # (XLA fuses the unrolled+cond loop structure differently than the
-    # fori_loop). Trades extra compile shapes for shrinking per-bounce
-    # traversal/shading cost on depth-8+ configs.
-    compact_deep: bool = True
-    compact_decay: float = 0.75
-
     # Radiance clamp applied before accumulation (simple.rgen:121).
     radiance_clamp: float = 5.0
 
@@ -72,22 +59,20 @@ class RenderConfig:
     t_max: float = 10000.0
 
     # Acceleration structure:
-    #   "auto"   — "pallas" on a TPU backend, "bvh" elsewhere
-    #   "pallas" — packet-traversal Pallas kernel (TPU; interpret elsewhere)
-    #   "bvh"    — XLA gather-based lockstep walk (portable)
-    #   "brute"  — O(T) oracle
+    #   "auto"  — the BVH walk ("bvh"); the only compiled traversal path
+    #   "bvh"   — XLA gather-based skip-link walk (ops/traverse.py)
+    #   "brute" — O(T) oracle (ops/intersect.py)
     accel: str = "auto"
-    # 16 tris/leaf: the latency-bound sub-packet kernel trades cheap extra
-    # VPU Moller-Trumbore work for ~35% fewer quad iterations — measured
-    # +4.9% end-to-end at 1080p/300k tris, image byte-identical
-    # (tools/r3_leaf16_frame_lab.py; sweep in tools/leafsweep_lab.py).
-    bvh_leaf_size: int = 16
+    # Triangles per BVH leaf: each traversal micro-step gathers and tests
+    # one whole leaf block per ray, so the leaf gather's bytes are weighed
+    # against the visit count. Chosen on the card with chip_smoke.py's
+    # 1080p main path (leaf 8 against 16; see PERF.md).
+    bvh_leaf_size: int = 8
     # Capacity-padded (stable-shape) bakes for interactive editing: small
     # topology edits (object add/remove) re-bake into the SAME jit
     # signature, so the editor path costs bake+upload instead of an XLA
-    # re-compile. Image-neutral (tests/test_stable_bake.py); costs ≤ +12.5%
-    # scene-table memory. Auto-skipped for multi-part bakes and when the
-    # padding would overflow the kernel VMEM budget.
+    # re-compile. Image-neutral (tests/test_stable_bake.py); costs <= +12.5%
+    # scene-table memory.
     stable_bake: bool = True
 
     # Preview denoising (BEYOND-REFERENCE; integrator/denoise.py): apply an
@@ -99,9 +84,9 @@ class RenderConfig:
     # Adaptive sampling (BEYOND-REFERENCE; integrator/adaptive.py): a pixel
     # stops sampling once the relative standard error of its mean luminance
     # drops under this tolerance (0 = off — every pixel samples every frame,
-    # bit-identical to the plain accumulation). Retired lanes sort dead-last
-    # so their kernel groups terminate in one pop. Mutually exclusive with
-    # use_restir (ReSTIR carries its own temporal state).
+    # bit-identical to the plain accumulation). Retired lanes start the
+    # traversal already finished. Mutually exclusive with use_restir
+    # (ReSTIR carries its own temporal state).
     adaptive_tol: float = 0.0
     adaptive_min_frames: int = 8
 
@@ -125,42 +110,33 @@ class RenderConfig:
     # reservoir"). Without it, a sample imported by spatial reuse that is
     # occluded at THIS pixel survives temporal reuse with M up to
     # restir_max_m and keeps shading as black for ~M frames — the dominant
-    # term of the atrium bias floor measured in RESTIR_BIAS_DIAG.json.
-    # Costs zero extra rays (the step-6 ray is traced either way).
-    # Default OFF, from measurement (RESTIR_FLOOR_LAB.json +
-    # RESTIR_DEFAULT_LAB.json): it conditions the reused distribution on
-    # "visible here", a +1.4–3% brightening that wins slightly on the
-    # atrium (MSE 0.0697 vs 0.0738 at 256 frames) but loses on the
-    # 64-light grid (0.00226 vs 0.00216, energy 1.014 vs 0.999); early
-    # frames (the real-time regime) are identical either way.
+    # term of the atrium's long-run bias floor. Costs zero extra rays (the
+    # step-6 ray is traced either way). Default OFF: it conditions the
+    # reused distribution on "visible here", a slight brightening that
+    # lowered the long-run error on the atrium but raised it (and the
+    # energy) on the 64-light grid; early frames (the real-time regime)
+    # are identical either way.
     restir_final_visibility_feedback: bool = False
     # Unbiased spatial combination (Bitterli et al. 2020 Alg. 6): count the
     # denominator Z over only those participants (receiver + spatial taps)
     # whose surface could have produced the chosen sample (p-hat > 0 there),
     # instead of the biased M-sum over all of them. Costs one extra
     # unshadowed-radiance evaluation per tap (pure math + gathers, no rays).
-    # Default OFF, from measurement: on both lab scenes the Alg.-6 Z-count
+    # Default OFF: on the atrium and the 64-light grid the Alg.-6 Z-count
     # removes an M-sum underweighting that happens to offset the
     # visible-conditioning brightening, so enabling it RAISES long-run
-    # error (atrium MSE 0.125 vs 0.0738; grid 0.00255 vs 0.00216) — and
-    # both fixes together are the worst variant on both scenes (0.158
-    # rising / energy 1.136 on the atrium). The measured +6% energy
-    # divergence that motivated these fixes is radiance-clamp interplay,
-    # not reuse bias: unclamped, RIS/plain flips to 0.956
-    # (RESTIR_DEFAULT_LAB.json atrium_unclamped).
+    # error — and both fixes together are the worst variant on both
+    # scenes. The energy divergence that motivated these fixes is
+    # radiance-clamp interplay, not reuse bias: without the clamp the
+    # ReSTIR/plain energy ratio falls below 1.
     restir_unbiased_spatial: bool = False
 
-    # Samples-per-launch batching (BEYOND-REFERENCE; the measured small-tile
-    # mitigation from TILESIZE_LAB.json): each progressive step renders
-    # spp_batch jittered samples of every pixel in ONE wavefront launch
-    # (repeated pixel ids + a per-lane frame vector), folding them into the
-    # accumulation with the exact sequential formula. Per-chip throughput
-    # falls with wavefront width (3.84 Mrays/s full-frame -> 1.47 on a 1/64
-    # tile); batching restores the width a small per-chip tile loses —
-    # S=16 on the 1/64 tile recovers 3.42 Mrays/s/chip, putting a v5e-64
-    # slice at ~219 Mrays/s (above the 200 target; BASELINE.md). Latency
-    # per step rises ~S-fold: use on multi-chip meshes where the per-chip
-    # tile is small, not single-chip full frames. Mutually exclusive with
+    # Samples-per-launch batching (BEYOND-REFERENCE): each progressive step
+    # renders spp_batch jittered samples of every pixel in ONE wavefront
+    # launch (repeated pixel ids + a per-lane frame vector), folding them
+    # into the accumulation with the exact sequential formula. It restores
+    # the wavefront width a small per-device tile loses on a mesh. Latency
+    # per step rises ~S-fold. Mutually exclusive with
     # ReSTIR (per-frame temporal reuse is inherently sequential) and
     # adaptive sampling (per-pixel counts own the frame index).
     spp_batch: int = 1
@@ -170,7 +146,7 @@ class RenderConfig:
             raise ValueError("width/height must be positive")
         if self.max_depth < 1:
             raise ValueError("max_depth must be >= 1")
-        if self.accel not in ("auto", "pallas", "bvh", "brute"):
+        if self.accel not in ("auto", "bvh", "brute"):
             raise ValueError(f"unknown accel {self.accel!r}")
         if self.spp_batch < 1:
             raise ValueError("spp_batch must be >= 1")
@@ -198,10 +174,7 @@ class RenderConfig:
         return dataclasses.replace(self, **kw)
 
     def resolve_accel(self) -> "RenderConfig":
-        """Pin accel="auto" to a concrete backend choice (pallas on TPU)."""
+        """Pin accel="auto" to the one compiled traversal path ("bvh")."""
         if self.accel != "auto":
             return self
-        import jax
-
-        choice = "pallas" if jax.default_backend() == "tpu" else "bvh"
-        return self.replace(accel=choice)
+        return self.replace(accel="bvh")

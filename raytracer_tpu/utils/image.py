@@ -1,6 +1,7 @@
 """Image IO + SSIM quality gate.
 
-PNG write/read via PIL; SSIM is a dependency-free numpy reimplementation of
+PNG write/read with the standard library (zlib + struct); SSIM is a
+dependency-free numpy reimplementation of
 `skimage.metrics.structural_similarity` with the defaults the reference's
 `ssim_compare.py:6-21` relies on (win_size=7 uniform window, K1=0.01,
 K2=0.03, channel_axis=2, uint8 data_range=255), so scores are comparable to
@@ -8,6 +9,9 @@ the reference's gate.
 """
 
 from __future__ import annotations
+
+import struct
+import zlib
 
 import numpy as np
 
@@ -19,20 +23,102 @@ def tonemap(linear_rgb: np.ndarray) -> np.ndarray:
     return (np.clip(linear_rgb, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
 
 
-def write_png(path: str, image: np.ndarray):
-    """image: u8[H,W,3] or f32[H,W,3] linear (tonemapped on the way out)."""
-    from PIL import Image
+_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
+
+def _png_chunk(tag: bytes, data: bytes) -> bytes:
+    crc = zlib.crc32(tag + data) & 0xFFFFFFFF
+    return struct.pack(">I", len(data)) + tag + data + struct.pack(">I", crc)
+
+
+def write_png(path: str, image: np.ndarray):
+    """image: u8[H,W,3|4] or f32[H,W,3] linear (tonemapped on the way out).
+    Writes an 8-bit RGB/RGBA PNG with filter type 0 on every row."""
     arr = np.asarray(image)
     if arr.dtype != np.uint8:
         arr = tonemap(arr)
-    Image.fromarray(arr, mode="RGB").save(path)
+    if arr.ndim != 3 or arr.shape[2] not in (3, 4):
+        raise ValueError(f"expected an [H,W,3|4] image, got {arr.shape}")
+    h, w, c = arr.shape
+    raw = np.concatenate(
+        [np.zeros((h, 1), np.uint8), arr.reshape(h, w * c)], axis=1)
+    color_type = 2 if c == 3 else 6
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0)
+    with open(path, "wb") as f:
+        f.write(_PNG_SIGNATURE)
+        f.write(_png_chunk(b"IHDR", ihdr))
+        f.write(_png_chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)))
+        f.write(_png_chunk(b"IEND", b""))
+
+
+def _unfilter(filtered: np.ndarray, h: int, stride: int, bpp: int):
+    """Undo the per-row PNG filters (types 0-4) of 8-bit pixel data.
+    filtered: u8[h, 1 + stride] rows with the filter byte first."""
+    out = np.zeros((h, stride), np.uint8)
+    prev = np.zeros(stride, np.int32)
+    for y in range(h):
+        ftype = int(filtered[y, 0])
+        line = filtered[y, 1:].astype(np.int32)
+        if ftype == 0:
+            cur = line
+        elif ftype == 2:  # Up
+            cur = (line + prev) & 0xFF
+        elif ftype in (1, 3, 4):  # Sub / Average / Paeth depend on `left`
+            cur = np.zeros(stride, np.int32)
+            for x in range(stride):
+                a = cur[x - bpp] if x >= bpp else 0
+                b = prev[x]
+                if ftype == 1:
+                    pred = a
+                elif ftype == 3:
+                    pred = (a + b) >> 1
+                else:
+                    c = prev[x - bpp] if x >= bpp else 0
+                    p = a + b - c
+                    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+                    pred = a if pa <= pb and pa <= pc else (
+                        b if pb <= pc else c)
+                cur[x] = (line[x] + pred) & 0xFF
+        else:
+            raise ValueError(f"unknown PNG filter type {ftype}")
+        out[y] = cur
+        prev = cur
+    return out
 
 
 def read_png(path: str) -> np.ndarray:
-    from PIL import Image
-
-    return np.asarray(Image.open(path).convert("RGB"))
+    """Read an 8-bit, non-interlaced RGB or RGBA PNG as u8[H,W,3] (alpha is
+    dropped, as the renderer's images are opaque)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != _PNG_SIGNATURE:
+        raise ValueError(f"{path}: not a PNG file")
+    pos = 8
+    idat = []
+    header = None
+    while pos < len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        tag = data[pos + 4:pos + 8]
+        body = data[pos + 8:pos + 8 + length]
+        pos += 12 + length
+        if tag == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat.append(body)
+        elif tag == b"IEND":
+            break
+    if header is None:
+        raise ValueError(f"{path}: missing IHDR chunk")
+    w, h, depth, color_type, _, _, interlace = header
+    channels = {2: 3, 6: 4}.get(color_type)
+    if depth != 8 or channels is None or interlace != 0:
+        raise ValueError(
+            f"{path}: only 8-bit non-interlaced RGB/RGBA PNGs are supported "
+            f"(depth {depth}, color type {color_type}, interlace {interlace})")
+    stride = w * channels
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    pixels = _unfilter(raw.reshape(h, 1 + stride), h, stride, channels)
+    return pixels.reshape(h, w, channels)[..., :3].copy()
 
 
 def write_ppm(path: str, image: np.ndarray):

@@ -1,7 +1,7 @@
 """Render statistics — the headless analog of the reference's ImGui stats
 window (`src/raytracer/ui.odin:491-571`): ms/frame + FPS with a rolling
 120-sample window, accumulated-frame counter, triangle/object/material
-counts, plus TPU-specific ray-throughput counters (Mrays/s) the reference
+counts, plus ray-throughput counters (Mrays/s) the reference
 only implicitly displays as FPS.
 """
 

@@ -4,12 +4,12 @@ setup(
     name="raytracer_tpu",
     version="0.1.0",
     description=(
-        "TPU-native wavefront path tracer (JAX/Pallas) with the "
-        "capabilities of ARTurleite6/RayTracer"
+        "Wavefront path tracer in JAX with the capabilities of "
+        "ARTurleite6/RayTracer"
     ),
     packages=find_packages(include=["raytracer_tpu*"]),
     python_requires=">=3.10",
-    install_requires=["jax", "numpy", "pillow"],
+    install_requires=["jax", "numpy"],
     entry_points={
         "console_scripts": ["rt-tpu=raytracer_tpu.cli:main"],
     },

@@ -65,8 +65,6 @@ def test_degenerate_coincident_centroids():
 
 
 def test_native_builder_invariants(rng_np):
-    if not native_builder.available():
-        pytest.skip("libbvh.so not built")
     v0, e1, e2 = _random_tris(rng_np, 1000)
     bvh = native_builder.build_bvh_native(v0, e1, e2, leaf_size=8)
     _check_invariants(bvh, v0, e1, e2, 8)
@@ -74,8 +72,6 @@ def test_native_builder_invariants(rng_np):
 
 def test_native_matches_numpy_hit_results(rng_np):
     """Different trees are fine; identical closest hits are required."""
-    if not native_builder.available():
-        pytest.skip("libbvh.so not built")
     import jax.numpy as jnp
 
     from raytracer_tpu.ops.traverse import intersect_bvh
@@ -229,97 +225,27 @@ def test_max_depth_single_leaf():
     assert build_bvh_numpy(v0, e1, e2, leaf_size=8).max_depth() == 0
 
 
-def test_pallas_guard_rejects_overdeep_tree():
-    """A scene whose BVH exceeds the kernel stack must be refused by the
-    packet kernel entry points (ProgressiveRenderer falls back to 'bvh';
-    direct callers get a loud assert, not silent SMEM corruption)."""
-    import dataclasses
+def test_native_library_is_built_on_first_use(tmp_path, monkeypatch):
+    """With no libbvh.so (a fresh checkout), the first build compiles it
+    from native/bvh_builder.cpp with native/build.sh, then loads it; a
+    library older than its source is rebuilt."""
+    import os
+    import shutil
 
-    import pytest as _pytest
-
-    from raytracer_tpu.ops.pallas_traverse import (
-        STACK_CAP,
-        intersect_bvh_pallas,
-        occlusion_bvh_pallas,
-        stack_fits,
-    )
-    from raytracer_tpu.scene.device_scene import bake_scene
-    from raytracer_tpu.scene.model import create_cornell_box
-
-    assert stack_fits(STACK_CAP - 2) and not stack_fits(STACK_CAP - 1)
-
-    ds, bvh = bake_scene(create_cornell_box())
-    assert ds.bvh_max_depth == bvh.max_depth()
-    deep = dataclasses.replace(ds, bvh_max_depth=STACK_CAP + 10)
-    import jax.numpy as jnp
-
-    o = jnp.zeros((8, 3), jnp.float32)
-    d = jnp.tile(jnp.asarray([[0.0, 0.0, 1.0]], jnp.float32), (8, 1))
-    with _pytest.raises(AssertionError, match="traversal stack"):
-        intersect_bvh_pallas(o, d, deep, 1e-3, 1e4)
-    with _pytest.raises(AssertionError, match="traversal stack"):
-        occlusion_bvh_pallas(o, d, 1e-3, 1e4, deep, jnp.zeros(8, jnp.int32))
-
-
-def test_subpacket_guard_rejects_overdeep_quad_tree():
-    """Same for the production sub-packet kernel: the bake-computed 4-ary
-    stack bound (q_stack_need) gates the kernel entry points."""
-    import dataclasses
-
-    import jax.numpy as jnp
-    import pytest as _pytest
-
-    from raytracer_tpu.ops.pallas_subpacket import (
-        CAP,
-        intersect_bvh_subpacket,
-        occlusion_bvh_subpacket,
-        stack_need_fits,
-    )
-    from raytracer_tpu.scene.device_scene import bake_scene
-    from raytracer_tpu.scene.model import create_cornell_box
-
-    ds, _ = bake_scene(create_cornell_box())
-    assert 0 < ds.q_stack_need <= CAP
-    assert stack_need_fits(ds)
-    deep = dataclasses.replace(ds, q_stack_need=CAP + 1)
-    o = jnp.zeros((8, 3), jnp.float32)
-    d = jnp.tile(jnp.asarray([[0.0, 0.0, 1.0]], jnp.float32), (8, 1))
-    with _pytest.raises(AssertionError, match="per-row stack"):
-        intersect_bvh_subpacket(o, d, deep, 1e-3, 1e4)
-    with _pytest.raises(AssertionError, match="per-row stack"):
-        occlusion_bvh_subpacket(
-            o, d, 1e-3, jnp.full((8,), 1e4), deep, jnp.zeros(8, jnp.int32)
-        )
-
-
-def test_collapse_bvh4_invariants(rng_np):
-    """Every binary leaf appears exactly once as a quad child; internal
-    quads are referenced exactly once (a tree); present-child boxes match
-    the binary nodes; absent children are NaN boxes (an inverted box would
-    pass the slab test — it normalizes to an infinite interval)."""
-    from raytracer_tpu.accel.bvh import collapse_bvh4
-
-    v0, e1, e2 = _random_tris(rng_np, 500)
-    bvh = build_bvh_numpy(v0, e1, e2, leaf_size=8)
-    qnodes, qmeta, qroot, need = collapse_bvh4(bvh)
-    n4 = qnodes.shape[0]
-    is_leaf = bvh.nodes_count > 0
-    nleaf = int(is_leaf.sum())
-
-    leaves_seen = []
-    quad_refs = []
-    for q in range(n4):
-        for c in range(4):
-            present = np.isfinite(qnodes[q, 6 * c])
-            meta = int(qmeta[4 * q + c])
-            if present:
-                if meta < 0:
-                    leaves_seen.append(~meta)
-                else:
-                    quad_refs.append(meta)
-            else:
-                assert np.isnan(qnodes[q, 6 * c: 6 * c + 6]).all()
-    assert sorted(leaves_seen) == list(range(nleaf))
-    assert sorted(quad_refs) == list(range(1, n4))
-    assert int(qroot[0]) == 0
-    assert 4 <= need <= 3 * (bvh.max_depth() + 1) + 1
+    src_dir = os.path.dirname(native_builder.SOURCE_PATH)
+    for name in ("bvh_builder.cpp", "build.sh"):
+        shutil.copy(os.path.join(src_dir, name), tmp_path)
+    lib = tmp_path / "libbvh.so"
+    monkeypatch.setattr(native_builder, "SOURCE_PATH",
+                        str(tmp_path / "bvh_builder.cpp"))
+    monkeypatch.setattr(native_builder, "LIBRARY_PATH", str(lib))
+    monkeypatch.setattr(native_builder, "_BUILD_SCRIPT",
+                        str(tmp_path / "build.sh"))
+    monkeypatch.setattr(native_builder, "_lib", None)
+    assert native_builder._needs_build()
+    v0, e1, e2 = _random_tris(np.random.default_rng(3), 50)
+    bvh = native_builder.build_bvh_native(v0, e1, e2, leaf_size=4)
+    _check_invariants(bvh, v0, e1, e2, 4)
+    assert lib.exists() and not native_builder._needs_build()
+    os.utime(lib, (1, 1))  # older than the source
+    assert native_builder._needs_build()

@@ -1,17 +1,21 @@
 """End-to-end CLI tests (the product surface a reference user drives).
 
-Tiny renders of the reference's own cornell_box.json through
+Tiny renders of the in-repo Cornell scene (examples/scenes/cornell_box.json,
+the reference's JSON format, identical to create_cornell_box) through
 `raytracer_tpu.cli.main`, covering the flag plumbing the unit tests
 don't: PNG/PPM output, checkpoint/resume, preview + stats loops, and
 the accel override.
 """
+
+import os
 
 import numpy as np
 
 from raytracer_tpu.cli import main
 from raytracer_tpu.utils.image import read_png
 
-SCENE = "/root/reference/scenes/cornell_box.json"
+SCENE = os.path.join(os.path.dirname(__file__), "..", "examples", "scenes",
+                     "cornell_box.json")
 BASE = ["--width", "16", "--height", "16", "--accel", "bvh"]
 
 

@@ -2,11 +2,16 @@
 noise (closer to a converged reference) without losing energy or touching
 the accumulation state."""
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from raytracer_tpu.utils.config import RenderConfig
+
+CORNELL_JSON = os.path.join(os.path.dirname(__file__), "..", "examples",
+                            "scenes", "cornell_box.json")
 
 
 @pytest.fixture(scope="module")
@@ -98,7 +103,7 @@ def test_cli_denoise_flag(tmp_path):
 
     out = tmp_path / "d.png"
     rc = main([
-        "/root/reference/scenes/cornell_box.json", "--width", "16",
+        CORNELL_JSON, "--width", "16",
         "--height", "16", "--spp", "2", "--denoise", "--out", str(out),
     ])
     assert rc == 0 and out.exists()

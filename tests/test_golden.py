@@ -12,6 +12,9 @@ import os
 import numpy as np
 import pytest
 
+CORNELL_JSON = os.path.join(os.path.dirname(__file__), "..", "examples",
+                            "scenes", "cornell_box.json")
+
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "..", "golden")
 
 
@@ -21,7 +24,7 @@ def cornell_render():
     from raytracer_tpu.scene.loaders import load_scene
     from raytracer_tpu.utils.config import RenderConfig
 
-    path = "/root/reference/scenes/cornell_box.json"
+    path = CORNELL_JSON
     if not os.path.exists(path):
         pytest.skip("reference scenes not mounted")
     cfg = RenderConfig(width=64, height=64)

@@ -63,40 +63,6 @@ def test_brute_vs_bvh_same_image():
     np.testing.assert_allclose(imgs["brute"], imgs["bvh"], rtol=1e-3, atol=1e-3)
 
 
-def test_deep_compaction_matches_uncompacted():
-    """Deep-bounce prefix compaction touches only dead lanes (sort orders
-    them last; the lax.cond checks the live count fits), so a depth-6
-    pallas render must match the uncompacted one. Tolerance is ULP-level,
-    not zero: compact_deep switches the bounce loop from lax.fori_loop to
-    an unrolled+cond structure, and XLA fuses the two differently (measured
-    max |d| ~7e-6 on lit pixels) — the compaction itself contributes
-    nothing (excluded lanes are bit-untouched)."""
-    from raytracer_tpu.integrator.wavefront import _compact_prefix
-    from raytracer_tpu.scene.model import create_cornell_box
-
-    base = RenderConfig(width=64, height=64, max_depth=6, accel="pallas")
-    assert _compact_prefix(64 * 64, 4, base) is not None
-    imgs = []
-    for compact in (True, False):
-        cfg = base.replace(compact_deep=compact)
-        imgs.append(render(create_cornell_box(), None, cfg, num_frames=2))
-    np.testing.assert_allclose(imgs[0], imgs[1], rtol=1e-4, atol=1e-5)
-
-
-def test_compact_prefix_schedule():
-    from raytracer_tpu.integrator.wavefront import _compact_prefix
-
-    cfg = RenderConfig(width=64, height=64, max_depth=8)
-    n = 2_073_600
-    assert _compact_prefix(n, 0, cfg) is None
-    assert _compact_prefix(n, cfg.rr_start_depth, cfg) is None
-    ks = [_compact_prefix(n, d, cfg) for d in range(4, 8)]
-    assert all(k is not None and k % 1024 == 0 and k < n for k in ks)
-    assert ks == sorted(ks, reverse=True)  # shrinking with depth
-    # Tiny wavefronts never compact below one kernel tile.
-    assert _compact_prefix(1024, 6, cfg) is None
-
-
 def test_deterministic():
     from raytracer_tpu.scene.model import create_cornell_box
 
@@ -279,61 +245,6 @@ def test_light_sampling_only_mode():
     assert not np.allclose(base, lso)
     m1, m2 = base.mean(), lso.mean()
     assert abs(m1 - m2) / max(m1, 1e-6) < 0.2, (m1, m2)
-
-
-class _CapLogs:
-    """Minimal logging capture (pytest's caplog fixture can't wrap just the
-    constructor call without also swallowing bake-time INFO noise)."""
-
-    def __init__(self, name, level):
-        import logging
-
-        self.logger = logging.getLogger(name)
-        self.level = level
-        self.records = []
-
-        class _H(logging.Handler):
-            def emit(h, record):
-                self.records.append(record)
-
-        self._handler_cls = _H
-
-    def __enter__(self):
-        self.handler = self._handler_cls(self.level)
-        self.logger.addHandler(self.handler)
-        return self.records
-
-    def __exit__(self, *exc):
-        self.logger.removeHandler(self.handler)
-
-
-def test_custom_t_min_falls_back_from_pallas():
-    """ADVICE r2: accel='pallas' hard-codes the reference's traceRayEXT
-    t_min=1e-3 (asserted at trace time in ops/pallas_subpacket.py); a
-    custom t_min must fall back to accel='bvh' with a warning instead of
-    crashing mid-render, and the custom value must actually take effect."""
-    import logging
-
-    import numpy as np
-
-    from raytracer_tpu.api import ProgressiveRenderer
-    from raytracer_tpu.scene.model import create_cornell_box
-    from raytracer_tpu.utils.config import RenderConfig
-
-    cfg = RenderConfig(width=16, height=16, accel="pallas", t_min=5e-3)
-    with _CapLogs("raytracer_tpu.api", logging.WARNING) as records:
-        r = ProgressiveRenderer(create_cornell_box(), None, cfg)
-    assert r.config.accel == "bvh"
-    assert r.config.t_min == 5e-3
-    assert any("t_min" in rec.getMessage() for rec in records)
-    r.step()
-    assert np.isfinite(r.image()).all()
-
-    # The default t_min keeps the pallas path (interpret mode on CPU).
-    r2 = ProgressiveRenderer(
-        create_cornell_box(), None,
-        RenderConfig(width=16, height=16, accel="pallas"))
-    assert r2.config.accel == "pallas"
 
 
 def test_pixel_indices_strided_and_batched_bit_identity():

@@ -1,10 +1,15 @@
 """preview_image: the scaled, denoised, upscaled side-channel render for
 interactive cadence (the reference's live viewport is its raw accumulating
-image, ui.odin:491-571; the TPU build trades 1/k^2 of the rays for a
+image, ui.odin:491-571; this build trades 1/k^2 of the rays for a
 filtered full-size preview). Must never touch progressive state."""
+
+import os
 
 import numpy as np
 import pytest
+
+CORNELL_JSON = os.path.join(os.path.dirname(__file__), "..", "examples",
+                            "scenes", "cornell_box.json")
 
 
 def _renderer(width=32, height=32, mesh=None, **cfg_kwargs):
@@ -147,7 +152,7 @@ def test_cli_preview_scale(tmp_path):
     from raytracer_tpu.utils.image import read_png
 
     out = str(tmp_path / "p.png")
-    rc = main(["/root/reference/scenes/cornell_box.json",
+    rc = main([CORNELL_JSON,
                "--width", "32", "--height", "32", "--accel", "bvh",
                "--spp", "2", "--out", out,
                "--preview", "1", "--preview-scale", "2"])

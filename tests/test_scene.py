@@ -86,6 +86,27 @@ def test_json_loader_matches_builtin_cornell():
     assert names == {"white", "red", "green", "light", "metallic", "glossy"}
 
 
+def test_in_repo_cornell_json_matches_builtin_cornell():
+    """examples/scenes/cornell_box.json is create_cornell_box() in the
+    reference's JSON format: same materials, objects, meshes, transforms."""
+    from raytracer_tpu.scene.loaders import load_scene
+    from raytracer_tpu.scene.model import create_cornell_box
+
+    path = os.path.join(os.path.dirname(__file__), "..", "examples",
+                        "scenes", "cornell_box.json")
+    got, want = load_scene(path), create_cornell_box()
+    assert got.materials == want.materials
+    assert len(got.objects) == len(want.objects) == 8
+    for a, b in zip(got.objects, want.objects):
+        assert (a.name, a.mesh_index, a.material_index) == (
+            b.name, b.mesh_index, b.material_index)
+        np.testing.assert_array_equal(a.transform.model_matrix,
+                                      b.transform.model_matrix)
+    for a, b in zip(got.meshes, want.meshes):
+        np.testing.assert_array_equal(a.positions, b.positions)
+        np.testing.assert_array_equal(a.indices, b.indices)
+
+
 @pytest.mark.parametrize(
     "rel",
     [
@@ -173,54 +194,6 @@ def test_material_update_path(cornell_scene):
     # Geometry untouched (same arrays).
     assert ds2.tri_v0 is ds.tri_v0
     cornell_scene.drain_changes()
-
-
-def test_pallas_vmem_fallback():
-    """Scenes beyond the packet kernel's VMEM budget fall back to the XLA
-    walk instead of failing to compile."""
-    from raytracer_tpu.api import ProgressiveRenderer
-    from raytracer_tpu.scene.model import create_cornell_box
-    from raytracer_tpu.utils.config import RenderConfig
-
-    import raytracer_tpu.api as api
-
-    cfg = RenderConfig(width=8, height=8, accel="pallas")
-    r = ProgressiveRenderer(create_cornell_box(), None, cfg)
-    assert r.device_scene.pallas_vmem_bytes > 0
-    assert r.config.accel == "pallas"  # small scene keeps the kernel
-
-    old = api.PALLAS_VMEM_BUDGET
-    try:
-        api.PALLAS_VMEM_BUDGET = 0  # every scene is now "too big"
-        r2 = ProgressiveRenderer(create_cornell_box(), None, cfg)
-        assert r2.config.accel == "bvh"
-    finally:
-        api.PALLAS_VMEM_BUDGET = old
-
-
-def test_pallas_oversized_scene_bakes_parts():
-    """Scenes whose packed arrays exceed the VMEM budget stay on the pallas
-    kernel via multi-part subtree bakes (no more XLA-walk fallback); hit
-    parity of the per-part passes is covered in test_pallas_subpacket."""
-    from raytracer_tpu.api import ProgressiveRenderer
-    from raytracer_tpu.scene.benchmark import create_benchmark_atrium
-    from raytracer_tpu.utils.config import RenderConfig
-
-    import raytracer_tpu.api as api
-
-    cfg = RenderConfig(width=8, height=8, accel="pallas")
-    old = api.PALLAS_VMEM_BUDGET
-    try:
-        api.PALLAS_VMEM_BUDGET = 2 << 20
-        r = ProgressiveRenderer(create_benchmark_atrium(40_000), None, cfg)
-        assert r.config.accel == "pallas"
-        ds = r.device_scene
-        assert ds.num_parts > 1
-        assert ds.pallas_vmem_bytes <= 2 << 20
-        assert 0 <= ds.part_max_depth <= ds.bvh_max_depth
-        assert ds.kernel_max_depth == ds.part_max_depth
-    finally:
-        api.PALLAS_VMEM_BUDGET = old
 
 
 def test_gltf_trs_decompose_roundtrip():

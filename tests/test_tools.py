@@ -113,22 +113,5 @@ def test_phase_timer():
     with t.phase("mul", result_holder=[x]):
         x = x * 2.0
     assert "mul" in t.totals
-    assert sync(x * 0 + 3.0) == 3.0
+    assert float(sync(x * 0 + 3.0)[0, 0]) == 3.0
     assert "ms total" in t.report()
-
-
-def test_restir_with_pallas_accel_interpret():
-    """ReSTIR + the packet kernel compose (interpret mode on CPU)."""
-    import numpy as np
-
-    from raytracer_tpu.api import ProgressiveRenderer
-    from raytracer_tpu.scene.model import create_cornell_box
-    from raytracer_tpu.utils.config import RenderConfig
-
-    cfg = RenderConfig(width=16, height=16, use_restir=True, accel="pallas",
-                       restir_initial_candidates=2, restir_spatial_neighbors=1)
-    r = ProgressiveRenderer(create_cornell_box(), None, cfg)
-    r.step()
-    img = r.image()
-    assert np.isfinite(img).all()
-    assert img.max() > 0.001

@@ -1,18 +1,19 @@
-"""Prewarm the persistent XLA compile cache — the reference's
-ahead-of-time shader compile, TPU-style.
+"""Prewarm the persistent XLA compile cache — the reference's ahead-of-time
+shader compile.
 
-The reference renders instantly at launch because build.py compiled its
-GLSL to SPIR-V ahead of time (/root/reference/build.py:59-75); the TPU
-build's first-ever run of a (resolution, feature-flag) signature instead
-pays the ~25-33 s XLA+Mosaic compile, and cache keys churn on source
-changes (VERDICT r3, missing #2). Run this once after install/deploy (or
-after editing raytracer_tpu sources): it drives ONE tiny frame through
-each standard program signature via the normal jit dispatch path — an
-explicit lower().compile() would use AOT compile options whose cache key
-differs from jit dispatch and would NOT warm it (measured, bench.py) —
-so every later process deserializes in ~1 s instead of compiling.
+The reference renders instantly at launch because its build compiled the
+GLSL to SPIR-V ahead of time (build.py:59-75); here the first run of a
+(resolution, feature-flag) signature pays the XLA compile instead, and
+cache keys change when the sources do. Run this once after install (or
+after editing raytracer_tpu sources): it drives ONE tiny frame through each
+standard program signature via the normal jit dispatch path — an explicit
+lower().compile() would use AOT compile options whose cache key differs
+from jit dispatch and would NOT warm it — so later processes load the
+compiled programs instead of compiling them. The cache directory is the one
+utils/compile_cache.py picks (JAX_COMPILATION_CACHE_DIR, else
+<repo>/.jax_cache).
 
-Usage:
+Usage (from the repository root):
     python tools/prewarm_cache.py [--sizes 1920x1080,512x288] [--fast]
 
 --fast warms only the plain progressive step (the CLI default path).
@@ -20,10 +21,11 @@ Signatures warmed per size: plain, ReSTIR DI, adaptive sampling, denoised
 preview (G-buffer + a-trous + upscale).
 """
 
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 DEFAULT_SIZES = "1920x1080,512x288"
 
@@ -74,8 +76,7 @@ def main(argv=None):
                     r.preview_image(scale=4, denoise=True)
             print(f"  {w}x{h} {name}: {time.perf_counter() - t0:.1f}s",
                   flush=True)
-    print(f"prewarm done in {time.perf_counter() - total0:.1f}s "
-          "(later processes deserialize these programs in ~1s)", flush=True)
+    print(f"prewarm done in {time.perf_counter() - total0:.1f}s", flush=True)
     return 0
 
 
